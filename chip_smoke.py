@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving decode and encode once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -16,14 +16,22 @@ Phases, one line each; any failure exits non-zero and prints no result:
    128 MiB raw and 1,600 FSE blocks, containers of 16 KiB to 4 MiB plus
    LZVN, RAW and empty containers);
 4. kernels: on the batch's own kernel inputs each CUDA kernel must equal its
-   plain PyTorch version bit for bit (every output word, final states and
-   positions); both timed with CUDA events;
+   plain PyTorch version bit for bit (decode: every output word, final
+   states and positions; encode: every defined push group and the final
+   states); each timed with CUDA events;
 5. slice: ``TorchDecoder("cuda").decode_many`` twice (warm-up, timed); every
    output's SHA-256 must equal its raw input's, with no spec-layer fallback
-   and both kernels launched; a small mixed batch must decode to its raw
-   inputs;
-6. the kernels' JSON line, then the result line
+   and both decode kernels launched; a small mixed batch must decode to its
+   raw inputs;
+6. encode: ``TorchEncoder("cuda").encode_many`` on the batch's raw inputs
+   twice (warm-up, timed); every output must equal its corpus container
+   (made by the native encoder), with both encode kernels launched;
+   ``encode_bytes`` must do the same on the largest and a small input;
+7. the kernels' JSON line, then the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
+
+Each path's launch counts are set to 0 just before its timed run and read
+just after; the kernel comparisons' launches do not count.
 """
 
 from __future__ import annotations
@@ -40,13 +48,16 @@ SEED = 0
 MIN_FSE_BLOCKS = 1600   # FSE blocks in flight, as in the reference's bench
 
 KERNELS = (
-    # name, wrapper, plain version, CUDA source, TPU kernel it replaces
-    ("decode_literals", "decode_literals", "decode_literals_ref",
-     "lzfse_rust_tpu_torch/csrc/fse_decode.cu",
+    # name (= wrapper; plain version name + "_ref"), CUDA source, TPU kernel
+    # it replaces
+    ("decode_literals", "lzfse_rust_tpu_torch/csrc/fse_decode.cu",
      "lzfse_rust_tpu/ops/pallas_decode.py:621"),
-    ("decode_lmds", "decode_lmds", "decode_lmds_ref",
-     "lzfse_rust_tpu_torch/csrc/fse_decode.cu",
+    ("decode_lmds", "lzfse_rust_tpu_torch/csrc/fse_decode.cu",
      "lzfse_rust_tpu/ops/pallas_decode.py:702"),
+    ("encode_literals", "lzfse_rust_tpu_torch/csrc/fse_encode.cu",
+     "lzfse_rust_tpu/ops/pallas_encode.py:242"),
+    ("encode_lmds", "lzfse_rust_tpu_torch/csrc/fse_encode.cu",
+     "lzfse_rust_tpu/ops/pallas_encode.py:291"),
 )
 
 
@@ -107,32 +118,61 @@ def corpus(seed: int):
     return pairs, n_fse
 
 
-def kernels(dec, sources) -> list[dict]:
+def kernels(dec, enc, pairs) -> list[dict]:
+    """Each kernel on the batch's own arguments against its plain version,
+    both timed with CUDA events (the plain version once)."""
     import torch
-    from lzfse_rust_tpu_torch.ops import cuda_decode as K
+    from lzfse_rust_tpu_torch.ops import cuda_decode as KD
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
     from lzfse_rust_tpu_torch.utils.timing import cuda_ms
-    lit, lmd = dec.kernel_args(sources)
+    lit, lmd = dec.kernel_args([c for _, c in pairs])
+    e_lit, e_lmd = enc.kernel_args([r for r, _ in pairs])
+    runs = (
+        (KD, lit, lambda outs: outs, f"{lit['tables'].shape[0]} streams, "
+         f"{lit['n_out']} output words"),
+        (KD, lmd, lambda outs: outs, f"{lmd['tables'].shape[0]} streams, "
+         f"{lmd['n_out']} output words"),
+        (KE, e_lit, lambda outs: KE.defined_columns("literals", outs,
+                                                    e_lit["num"]),
+         f"{e_lit['num'].numel()} streams, "
+         f"{int(KE.steps_of('literals', e_lit['num'], 1 << 30).sum())} groups"),
+        (KE, e_lmd, lambda outs: KE.defined_columns("lmds", outs,
+                                                    e_lmd["num"]),
+         f"{e_lmd['num'].numel()} streams, "
+         f"{int(KE.steps_of('lmds', e_lmd['num'], 1 << 30).sum())} groups"),
+    )
     rows = []
-    for (name, fn_name, ref_name, src, replaces), args in zip(
-            KERNELS, (lit, lmd)):
-        fn, ref = getattr(K, fn_name), getattr(K, ref_name)
-        got = fn(**args)
+    for (name, src, replaces), (mod, args, defined, shape) in zip(KERNELS,
+                                                                  runs):
+        fn, ref = getattr(mod, name), getattr(mod, name + "_ref")
+        got = defined(fn(**args))
         torch.cuda.synchronize()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
         want = ref(**args)
-        torch.cuda.synchronize()
+        end.record()
+        end.synchronize()
+        plain_ms = start.elapsed_time(end)
+        want = defined(want)
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         ms = cuda_ms(lambda: fn(**args), reps=10, warmup=2)
-        plain_ms = cuda_ms(lambda: ref(**args), reps=1, warmup=0)
         phase("kernel", same and err == 0,
-              f"{name}: {args['tables'].shape[0]} streams, {args['n_out']} "
-              f"output words, bit-exact={same}, max_abs_err={err}, "
+              f"{name}: {shape}, bit-exact={same}, max_abs_err={err}, "
               f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": 0,
                      "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
     return rows
+
+
+def reset_launches() -> None:
+    """Every kernel's launch count to 0."""
+    from lzfse_rust_tpu_torch.ops import cuda_decode, cuda_encode
+    cuda_decode.reset_launches()
+    cuda_encode.reset_launches()
 
 
 def slice_run(dec, pairs) -> dict:
@@ -141,11 +181,11 @@ def slice_run(dec, pairs) -> dict:
     from lzfse_rust_tpu_torch.utils import corpus as CP
     sources = [c for _, c in pairs]
     raw_bytes = sum(len(r) for r, _ in pairs)
-    K.reset_launches()
     warm: dict = {}
     dec.decode_many(sources, warm)
     torch.cuda.reset_peak_memory_stats()
     stats: dict = {}
+    reset_launches()
     t = time.perf_counter()
     outs = dec.decode_many(sources, stats)
     wall = time.perf_counter() - t
@@ -173,6 +213,51 @@ def slice_run(dec, pairs) -> dict:
     return launches
 
 
+def encode_run(enc, pairs) -> dict:
+    import torch
+    from lzfse_rust_tpu_torch.ops import cuda_encode as K
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    # the bare b"bvx$" container is hand-made; every other one is the
+    # native encoder's
+    pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
+    raws = [r for r, _ in pairs]
+    raw_bytes = sum(map(len, raws))
+    enc.encode_many(raws)
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    reset_launches()
+    t = time.perf_counter()
+    outs = enc.encode_many(raws, stats)
+    wall = time.perf_counter() - t
+    launches = dict(K.launches)
+    bad = [i for i, ((_, c), out) in enumerate(zip(pairs, outs)) if out != c]
+    split = {k: round(v * 1e3, 3) for k, v in stats.items()
+             if isinstance(v, float)}
+    detail = {k: round(v, 3) for k, v in stats["detail_device"].items()}
+    phase("encode", not bad and all(n > 0 for n in launches.values()),
+          f"{len(outs)} sources, container mismatches {len(bad)}, "
+          f"launches {launches}")
+    print(f"[encode] stage split ms {split}; device events ms {detail}; "
+          f"peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    dd = stats["detail_device"]
+    print(f"[encode] upload {stats['upload_bytes']} bytes = "
+          f"{stats['upload_bytes'] / dd['upload_ms'] / 1e6:.2f} GB/s; "
+          f"download {stats['download_bytes']} bytes = "
+          f"{stats['download_bytes'] / dd['download_ms'] / 1e6:.2f} GB/s",
+          flush=True)
+    print(f"[encode] full encode {raw_bytes} bytes in {wall * 1e3:.3f} ms = "
+          f"{raw_bytes / wall / 1e9:.4f} GB/s", flush=True)
+    big = max(pairs, key=lambda p: len(p[0]))
+    small = min((p for p in pairs if len(p[0]) > 4096),
+                key=lambda p: len(p[0]))
+    phase("encode_bytes", all(enc.encode_bytes(r) == c for r, c in
+                              (big, small)),
+          f"encode_bytes on {len(big[0])} and {len(small[0])} bytes equals "
+          f"the corpus containers")
+    return launches
+
+
 def main() -> int:
     if not (ROOT / "lzfse_rust_tpu_torch").is_dir() or \
             not (ROOT / "lzfse_rust_tpu").is_dir():
@@ -185,15 +270,19 @@ def main() -> int:
         build()
         pairs, _ = corpus(SEED)
         import torch
-        from lzfse_rust_tpu_torch import TorchDecoder
+        from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
         dec = TorchDecoder("cuda")
-        rows = kernels(dec, [c for _, c in pairs])
+        enc = TorchEncoder("cuda")
+        rows = kernels(dec, enc, pairs)
         launches = slice_run(dec, pairs)
+        launches.update(encode_run(enc, pairs))
+        for r in rows:
+            r["launches"] = launches[r["name"]]
+        phase("launches", all(r["launches"] > 0 for r in rows),
+              f"{ {r['name']: r['launches'] for r in rows} }")
     except PhaseError as exc:
         print(f"chip_smoke: failed: {exc}", file=sys.stderr)
         return 1
-    for r in rows:
-        r["launches"] = launches[r["name"]]
     print(json.dumps({"kernels": rows}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": kind,

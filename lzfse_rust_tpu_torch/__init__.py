@@ -1,19 +1,22 @@
-"""lzfse_rust_tpu_torch -- the LZFSE codec's serving decode on PyTorch and CUDA.
+"""lzfse_rust_tpu_torch -- the LZFSE codec's serving decode and encode on PyTorch and CUDA.
 
 A port of ``lzfse_rust_tpu`` (JAX on a TPU) to PyTorch with kernels written
 by hand for the NVIDIA H100 (``sm_90a``). The JAX package stays beside it as
 the reference; this package imports its JAX-free host layers (``base``,
-``spec``, the native runtime and the decoder's host helpers) and never JAX.
+``spec``, the native runtime and the codec models' host helpers) and never
+JAX.
 
-    from lzfse_rust_tpu_torch import TorchDecoder
+    from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
     outs = TorchDecoder("cuda").decode_many(containers)
+    blobs = TorchEncoder("cuda").encode_many(raws)
 
 Layout mirrors the reference: ``runtime/`` builds and binds the native
 libraries, ``csrc/`` holds the CUDA sources, ``ops/`` the kernel wrappers
-with their plain PyTorch versions, ``models/`` the decoder, ``utils/`` the
-timing helpers and the seeded corpus.
+with their plain PyTorch versions, ``models/`` the decoder and the encoder,
+``utils/`` the timing helpers and the seeded corpus.
 """
 
 from .models.decoder import TorchDecoder
+from .models.encoder import TorchEncoder
 
-__all__ = ["TorchDecoder"]
+__all__ = ["TorchDecoder", "TorchEncoder"]

@@ -65,6 +65,32 @@ class _Clock:
         self.t = t
 
 
+def host_buffer(old: torch.Tensor | None, n_words: int,
+                pinned: bool) -> torch.Tensor:
+    """A host int32 buffer of at least n_words: ``old`` when it is big
+    enough, else a new one (1 MiB steps), pinned when it feeds a card."""
+    if old is not None and old.numel() >= n_words:
+        return old
+    cap = _round_up(max(n_words, 1), 1 << 18)
+    return torch.empty(cap, dtype=torch.int32, pin_memory=pinned)
+
+
+def download(outs, buf: torch.Tensor | None, cuda: bool):
+    """Copy int32 device tensors into one host buffer (``buf`` reused when
+    big enough; pinned, with ``non_blocking`` copies, from a card). Returns
+    (buffer, numpy views shaped as ``outs``); on a card the views are valid
+    once the stream has passed the copies."""
+    sizes = [t.numel() for t in outs]
+    buf = host_buffer(buf, sum(sizes), cuda)
+    host = buf.numpy()
+    pieces, o = [], 0
+    for t, n in zip(outs, sizes):
+        buf[o:o + n].copy_(t.reshape(-1), non_blocking=cuda)
+        pieces.append(host[o:o + n].reshape(t.shape))
+        o += n
+    return buf, pieces
+
+
 @dataclass
 class _Batch:
     """One call's kernel arguments (device tensors) and the host maps from
@@ -98,22 +124,14 @@ class TorchDecoder:
 
     # -- host buffers ----------------------------------------------------
 
-    def _host(self, old: torch.Tensor | None, n_words: int) -> torch.Tensor:
-        """A host int32 buffer of at least n_words, reused when it fits
-        (1 MiB steps); pinned when the device is a card."""
-        if old is not None and old.numel() >= n_words:
-            return old
-        cap = _round_up(max(n_words, 1), 1 << 18)
-        return torch.empty(cap, dtype=torch.int32,
-                           pin_memory=self.device.type == "cuda")
-
     def _staging(self, n_words: int) -> torch.Tensor:
         # the previous call's upload may still read this buffer: wait for
         # it before refilling
         if self._stage_free is not None:
             self._stage_free.synchronize()
             self._stage_free = None
-        self._stage = self._host(self._stage, n_words)
+        self._stage = host_buffer(self._stage, n_words,
+                                  self.device.type == "cuda")
         return self._stage
 
     # -- pipeline --------------------------------------------------------
@@ -249,17 +267,9 @@ class TorchDecoder:
             ev[0].record()
         outs = (*K.decode_literals(**batch.lit), *K.decode_lmds(**batch.lmd))
         # lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp
-        sizes = [t.numel() for t in outs]
-        self._down = self._host(self._down, sum(sizes))
-        host = self._down.numpy()
-        o = 0
         if cuda:
             ev[1].record()
-        pieces = []
-        for t, n in zip(outs, sizes):
-            self._down[o:o + n].copy_(t.reshape(-1), non_blocking=cuda)
-            pieces.append(host[o:o + n].reshape(t.shape))
-            o += n
+        self._down, pieces = download(outs, self._down, cuda)
         if cuda:
             ev[2].record()
             ev[2].synchronize()

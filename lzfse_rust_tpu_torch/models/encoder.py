@@ -1,0 +1,383 @@
+"""TorchEncoder -- batched LZFSE container encode whose tANS block emission
+runs on a CUDA device.
+
+Counterpart of ``lzfse_rust_tpu.models.encoder.TpuEncoder`` with
+``frontend="native"`` and device emission, its serving default. The host
+layers are the JAX package's own, reused as they are: the native frontend,
+staging and packing (``runtime/native.py``), the block parse, and the spec
+layer's block headers and weight payloads. What runs on the device is the
+E-table build (``ops/fse_encode.py``) and the two encode kernels of
+``ops/cuda_encode.py``.
+
+``encode_many``, the serving path (``TpuEncoder._encode_many_staged``):
+
+1. small: inputs of at most ``VN_CUTOFF`` bytes go to ``native.encode_bytes``
+   (LZVN or RAW blocks);
+2. frontend: ``native.frontend_stage`` per source, over a host thread pool
+   (it releases the GIL), finds matches, selects and splits blocks, and
+   writes every closed block -- and its period-split alternative -- into
+   one staging pool, pinned on a card. A pool too small for the batch is
+   the one failure that is retried: the pool doubles and the frontends run
+   again;
+3. emit_prep: each kernel's slots are ordered longest first, and the live
+   rows of the pool go up in ``non_blocking`` copies;
+4. emit_kernels: the E tables, the literal and L/M/D kernels, and one
+   pinned download of the push groups and final states;
+5. pack: ``native.pack_stage`` packs every slot's groups into its block
+   body; a block's period-split alternative wins when it is strictly
+   smaller (ties keep the block as it is), as ``emit_best`` decides.
+
+``encode_bytes`` ports the native-frontend branch of
+``TpuEncoder.encode_bytes``: ``native.frontend_blocks``, the period-split
+choice, per-block staging with ``native.block_weights``, the same two
+kernels, ``native.pack_groups`` (with the V2 weight payload that
+``native.block_weights`` writes), and header assembly from ``spec.fse``.
+
+Every output is byte-identical to ``native.encode_bytes``. Unlike the JAX
+encoder, nothing falls back to a host encoder: an error in a kernel, a
+transfer or a native call raises. ``device="cpu"`` runs the kernels' plain
+versions; it exists for the tests. A CUDA device without a card raises.
+"""
+
+from __future__ import annotations
+
+import concurrent.futures as cf
+import os
+
+import numpy as np
+import torch
+
+from lzfse_rust_tpu.base import constants as C
+from lzfse_rust_tpu.base.errors import LzfseError
+from lzfse_rust_tpu.models.encoder import TpuEncoder
+from lzfse_rust_tpu.spec import fse as F
+
+from ..ops import cuda_encode as K
+from ..ops.fse_encode import build_encode_tables
+from ..runtime.build import native_runtime
+from .decoder import _Clock, _round_up, download
+
+# staged row width: LMDS_PER_BLOCK rounded up to 128, the width
+# native.frontend_stage and native.pack_stage are used with
+N_COLS = -(-C.LMDS_PER_BLOCK // 128) * 128
+WPAY_CAP = 640   # bytes per slot for a V2 weight payload (at most 630)
+MAX_SLOTS = 1 << 20
+EOS = C.MAGIC_EOS.to_bytes(4, "little")
+
+# staging pool: name, per-slot shape, dtype. The first nine are the arrays
+# of native.frontend_stage, in its order; the slot orders ride along
+_POOL = (("weights", (C.N_WEIGHTS,), torch.int64),
+         ("litw", (N_COLS * 4,), torch.uint8),
+         ("lit_num", (), torch.int32),
+         ("lmv", (N_COLS,), torch.int32),
+         ("dv", (N_COLS,), torch.int32),
+         ("lmd_num", (), torch.int32),
+         ("meta", (4,), torch.int32),
+         ("wpay", (WPAY_CAP,), torch.uint8),
+         ("wpay_len", (), torch.int32),
+         ("order_l", (), torch.int32),
+         ("order_m", (), torch.int32))
+_UPLOAD = ("weights", "litw", "lit_num", "lmv", "dv", "lmd_num", "order_l",
+           "order_m")
+
+
+def _map(fn, items) -> list:
+    """``[fn(x) for x in items]`` over a host thread pool (the native calls
+    release the GIL). The first exception propagates."""
+    items = list(items)
+    if len(items) < 2:
+        return [fn(x) for x in items]
+    with cf.ThreadPoolExecutor(min(len(items), os.cpu_count() or 1)) as ex:
+        return list(ex.map(fn, items))
+
+
+class _Pool:
+    """Host staging arrays for ``slots`` blocks: torch tensors (pinned for a
+    card) and the numpy views the native calls fill."""
+
+    def __init__(self, slots: int, pinned: bool):
+        self.slots = slots
+        self.t = {k: torch.empty((slots, *shape), dtype=dt, pin_memory=pinned)
+                  for k, shape, dt in _POOL}
+        self.a = {k: v.numpy() for k, v in self.t.items()}
+
+    def native_bufs(self) -> tuple:
+        return tuple(self.a[k] for k, _, _ in _POOL[:9])
+
+
+class TorchEncoder:
+    """Batched container encoder whose tANS emission runs in the CUDA
+    kernels of ``ops/cuda_encode.py`` (or their plain versions on CPU)."""
+
+    def __init__(self, device="cuda"):
+        self.device = torch.device(device)
+        if self.device.type == "cuda":
+            if not torch.cuda.is_available():
+                raise RuntimeError("TorchEncoder: device 'cuda' requested "
+                                   "but CUDA is not available")
+        elif self.device.type != "cpu":
+            raise ValueError(f"TorchEncoder: unsupported device {device!r}")
+        self._native = native_runtime()
+        self._pool: _Pool | None = None
+        self._pool_free = None   # event: the last upload from _pool is done
+        self._down: torch.Tensor | None = None   # host download, int32
+        self._arena: np.ndarray | None = None    # packed block bodies
+        self.last_emission: str | None = None
+
+    # -- staging ---------------------------------------------------------
+
+    def _staging(self, slots: int) -> _Pool:
+        # the previous call's upload may still read the pool: wait for it
+        # before refilling
+        if self._pool_free is not None:
+            self._pool_free.synchronize()
+            self._pool_free = None
+        if self._pool is None or self._pool.slots < slots:
+            self._pool = _Pool(_round_up(slots, 256), self.device.type == "cuda")
+        return self._pool
+
+    def _frontends(self, sources, big):
+        """Run ``native.frontend_stage`` on every source in ``big``. Returns
+        (pool, slots used, per-source base-slot lists, per-source block
+        counts)."""
+        # every closed block consumes >= 40000 source bytes (10000 rows of
+        # >= 4-byte matches, or the 40000-literal cap), +1 final block;
+        # the slack covers period-split alternatives
+        bound = sum(len(sources[i]) // 40000 + 2 for i in big) + 32
+        while True:
+            pool = self._staging(bound)
+            bufs = pool.native_bufs()
+            counter = np.zeros(1, np.int64)
+            out_lists = {i: np.zeros(len(sources[i]) // 40000 + 2, np.int32)
+                         for i in big}
+            try:
+                counts = _map(lambda i: self._native.frontend_stage(
+                    sources[i], bufs, counter, out_lists[i]), big)
+            except LzfseError:
+                # the pool overflowed; nothing has been launched yet
+                if bound > MAX_SLOTS:
+                    raise
+                bound *= 2
+                continue
+            break
+        nb_of = dict(zip(big, counts))
+        nb = int(counter[0])
+        # an input above VN_CUTOFF always closes at least one block; assembly
+        # below reads each source's base slots
+        if nb < 1 or min(counts) < 1:
+            raise RuntimeError(f"frontend_stage staged {nb} slots, block "
+                               f"counts {counts}: a source closed no block")
+        return pool, nb, out_lists, nb_of
+
+    def _upload(self, pool: _Pool, nb: int) -> dict:
+        """Order the slots and send the live rows of the pool to the device.
+        Returns the device tensors (views of the pool on CPU)."""
+        a = pool.a
+        a["order_l"][:nb] = K.slot_order(
+            K.steps_of("literals", a["lit_num"][:nb], N_COLS))
+        a["order_m"][:nb] = K.slot_order(
+            K.steps_of("lmds", a["lmd_num"][:nb], N_COLS))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            ev = (torch.cuda.Event(enable_timing=True),
+                  torch.cuda.Event(enable_timing=True))
+            ev[0].record()
+        dev = {k: pool.t[k][:nb].to(self.device, non_blocking=True)
+               for k in _UPLOAD}
+        if cuda:
+            ev[1].record()
+            self._pool_free = ev[1]
+            dev["upload"] = ev
+        return dev
+
+    @staticmethod
+    def _kwargs(dev: dict) -> tuple[dict, dict]:
+        """The E tables, then both kernels' keyword arguments."""
+        e_l, e_m, e_d, e_u = build_encode_tables(dev["weights"])
+        lit = dict(e_u=e_u, words=dev["litw"].view(torch.int32),
+                   num=dev["lit_num"], order=dev["order_l"])
+        lmd = dict(e_l=e_l, e_m=e_m, e_d=e_d, lm=dev["lmv"], d=dev["dv"],
+                   num=dev["lmd_num"], order=dev["order_m"])
+        return lit, lmd
+
+    def _emit(self, pool: _Pool, nb: int, stats: dict | None,
+              clock: _Clock):
+        """Upload, E tables, both kernels, download. Returns host arrays
+        (glo, gmeta, literal states, mlo, mmeta, L/M/D states), by slot."""
+        dev = self._upload(pool, nb)
+        clock.mark("emit_prep")
+        cuda = self.device.type == "cuda"
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+            ev[0].record()
+        lit, lmd = self._kwargs(dev)
+        outs = (*K.encode_literals(**lit), *K.encode_lmds(**lmd))
+        if cuda:
+            ev[1].record()
+        self._down, pieces = download(outs, self._down, cuda)
+        if stats is not None:
+            for key, ts in (("upload_bytes", [dev[k] for k in _UPLOAD]),
+                            ("download_bytes", outs)):
+                stats[key] = stats.get(key, 0) + sum(x.nbytes for x in ts)
+        if cuda:
+            ev[2].record()
+            ev[2].synchronize()
+            if stats is not None:
+                det = stats.setdefault("detail_device", {})
+                for key, a, b in (("upload_ms", *dev["upload"]),
+                                  ("kernels_ms", ev[0], ev[1]),
+                                  ("download_ms", ev[1], ev[2])):
+                    det[key] = det.get(key, 0.0) + a.elapsed_time(b)
+        clock.mark("emit_kernels")
+        return pieces
+
+    # -- public ----------------------------------------------------------
+
+    def encode_many(self, sources: list[bytes],
+                    stats: dict | None = None) -> list[bytes]:
+        """Encode a batch of sources, every FSE block of all of them in one
+        device emission pass. Byte-identical to ``encode_bytes`` and to
+        ``native.encode_bytes`` per source.
+
+        ``stats``, when given, receives wall-clock seconds per stage
+        (``small``, ``frontend``, ``emit_prep``, ``emit_kernels``, ``pack``),
+        the bytes sent up and brought back (``upload_bytes``,
+        ``download_bytes``) and, on a card, the CUDA-event milliseconds of
+        the upload, the E tables and kernels, and the download under
+        ``detail_device``.
+        Not re-entrant: the staging buffers belong to the encoder."""
+        clock = _Clock(stats)
+        results: list = [None] * len(sources)
+        big: list[int] = []
+        for i, s in enumerate(sources):
+            if len(s) <= C.VN_CUTOFF:
+                results[i] = self._native.encode_bytes(s)
+            else:
+                big.append(i)
+        clock.mark("small")
+        if not big:
+            return results
+        pool, nb, out_lists, nb_of = self._frontends(sources, big)
+        clock.mark("frontend")
+        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit(pool, nb, stats, clock)
+
+        cap = self._native.PACK_SLOT_CAP
+        if self._arena is None or self._arena.size < nb * cap:
+            self._arena = np.empty(nb * cap, np.uint8)
+        lens = np.zeros(nb, np.int64)
+        a = pool.a
+        self._native.pack_stage(glo, gmeta, mlo, mmeta, lfs, mfs,
+                                a["lit_num"], a["lmd_num"], a["meta"],
+                                a["wpay"], a["wpay_len"], nb, self._arena,
+                                lens)
+        arena = self._arena
+
+        def body(s: int):
+            return arena[s * cap:s * cap + int(lens[s])]
+
+        for i in big:
+            parts = []
+            for s in out_lists[i][:nb_of[i]]:
+                s = int(s)
+                alt = int(a["meta"][s, 2])
+                # emit_best: the strictly smaller variant wins, ties keep
+                # the block as it is
+                parts.append(body(alt) if alt >= 0 and lens[alt] < lens[s]
+                             else body(s))
+            results[i] = b"".join(parts) + EOS
+        clock.mark("pack")
+        self.last_emission = "device"
+        return results
+
+    def encode_bytes(self, src: bytes) -> bytes:
+        """Encode one source: the native frontend's blocks, emitted on the
+        device one block per slot. Byte-identical to ``native.encode_bytes``."""
+        if len(src) <= C.VN_CUTOFF:
+            return self._native.encode_bytes(src)
+        blocks = TpuEncoder._parse_blocks(self._native.frontend_blocks(src))
+        body = b"".join(self._emit_best(blocks))
+        self.last_emission = "device"
+        return body + EOS
+
+    def kernel_args(self, sources: list[bytes]) -> tuple[dict, dict]:
+        """The two kernels' arguments for a batch, on this encoder's
+        device: ``(encode_literals kwargs, encode_lmds kwargs)``, as
+        ``encode_many`` passes them. On CPU they are views of the staging
+        pool, valid until the next call."""
+        big = [i for i, s in enumerate(sources) if len(s) > C.VN_CUTOFF]
+        if not big:
+            raise ValueError("no source is above VN_CUTOFF: nothing to emit")
+        pool, nb, _, _ = self._frontends(sources, big)
+        return self._kwargs(self._upload(pool, nb))
+
+    # -- encode_bytes: per-block staging ---------------------------------
+
+    def _emit_best(self, blocks) -> list:
+        """Block bodies with the period-split decision (emit_best): a block
+        with an eligible alternative emits both row forms in the same pass
+        and the strictly smaller body wins (ties keep the block as is)."""
+        flat = list(blocks)
+        alt_of: dict[int, int] = {}
+        for bi, (lits, rows, n_mb) in enumerate(blocks):
+            alt = F.period_split_rows(rows)
+            if alt is not None:
+                alt_of[bi] = len(flat)
+                flat.append((lits, alt, n_mb))
+        bodies = self._emit_blocks(flat)
+        out = []
+        for bi in range(len(blocks)):
+            j = alt_of.get(bi)
+            out.append(bodies[j] if j is not None
+                       and len(bodies[j]) < len(bodies[bi]) else bodies[bi])
+        return out
+
+    def _emit_blocks(self, blocks) -> list:
+        """One body per block: weights and rows staged per block, both
+        kernels over all blocks at once, groups packed per block."""
+        nb = len(blocks)
+        pool = self._staging(nb)
+        a = pool.a
+        w_payloads: list = [b""] * nb
+
+        def stage(i):
+            lits, rows3, _ = blocks[i]
+            a["weights"][i], w_payloads[i] = self._native.block_weights(
+                rows3, lits)
+            n_lit = len(lits)
+            pad = (-n_lit) % 4
+            start = N_COLS * 4 - (n_lit + pad)
+            a["litw"][i, start:start + n_lit] = lits
+            a["litw"][i, start + n_lit:start + n_lit + pad] = \
+                lits[0] if n_lit else 0
+            a["lit_num"][i] = n_lit + pad
+            nr = len(rows3)
+            a["lmv"][i, N_COLS - nr:] = rows3[:, 0] | (rows3[:, 1] << 16)
+            a["dv"][i, N_COLS - nr:] = rows3[:, 2]
+            a["lmd_num"][i] = nr
+
+        _map(stage, range(nb))
+        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit(pool, nb, None,
+                                                      _Clock(None))
+
+        def pack(i):
+            lits, _, n_mb = blocks[i]
+            padded = int(a["lit_num"][i])
+            lit_pay, lit_off = self._native.pack_groups(glo[i], gmeta[i],
+                                                        padded // 4, 8)
+            lmd_pay, lmd_off = self._native.pack_groups(
+                mlo[i], mmeta[i], int(a["lmd_num"][i]), 22)
+            lmd_pay = b"\x00" * 8 + lmd_pay
+            lit_param = F.LiteralParam(
+                num=padded, n_payload_bytes=len(lit_pay), bits=lit_off,
+                state=tuple(int(s) - C.U_STATES for s in lfs[i]))
+            lmd_param = F.LmdParam(
+                num=int(a["lmd_num"][i]), n_payload_bytes=len(lmd_pay),
+                bits=lmd_off,
+                state=(int(mfs[i, 0]) - C.L_STATES,
+                       int(mfs[i, 1]) - C.M_STATES,
+                       int(mfs[i, 2]) - C.D_STATES))
+            block = F.FseBlock(lit_param, lmd_param, len(lits) + n_mb)
+            return b"".join((F.store_v2_header(block, len(w_payloads[i])),
+                             w_payloads[i], lit_pay, lmd_pay))
+
+        return _map(pack, range(nb))

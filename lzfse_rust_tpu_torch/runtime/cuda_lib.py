@@ -1,10 +1,11 @@
 """ctypes bindings of the CUDA kernel library (``csrc/*.cu``).
 
 The library is built by ``runtime/build.py`` and loaded on first use, never
-at import: importing this module needs neither ``nvcc`` nor a card. Every
-pointer argument and the stream are ``c_void_p`` (Python ints from
-``tensor.data_ptr()`` and ``stream.cuda_stream``); the block count is
-``c_int`` and buffer lengths are ``c_longlong``.
+at import: importing this module needs neither ``nvcc`` nor a card. Each
+entry point has its own argument list: pointers and the stream are
+``c_void_p`` (Python ints from ``tensor.data_ptr()`` and
+``stream.cuda_stream``), counts ``c_int`` and buffer lengths
+``c_longlong``.
 Each entry point returns ``cudaGetLastError()``; ``check`` raises when it
 is not 0.
 """
@@ -14,12 +15,18 @@ from __future__ import annotations
 import ctypes
 
 _P = ctypes.c_void_p
+_I = ctypes.c_int
+_L = ctypes.c_longlong
 
-# entry point -> number of pointer arguments before (nb, n_words, n_out,
-# stream)
-_ENTRY_POINTERS = {
-    "lzt_decode_literals": 12,
-    "lzt_decode_lmds": 12,
+# entry point -> argument types
+_ENTRY_POINTS = {
+    # 12 pointers, nb, n_words, n_out, stream (csrc/fse_decode.cu)
+    "lzt_decode_literals": [_P] * 12 + [_I, _L, _L, _P],
+    "lzt_decode_lmds": [_P] * 12 + [_I, _L, _L, _P],
+    # tables, rows, num, order, 3 outputs; nb, n_cols, stream
+    # (csrc/fse_encode.cu)
+    "lzt_encode_literals": [_P] * 7 + [_I, _I, _P],
+    "lzt_encode_lmds": [_P] * 10 + [_I, _I, _P],
 }
 
 _LIB = None
@@ -32,11 +39,10 @@ class CudaError(RuntimeError):
 def load(path) -> ctypes.CDLL:
     """Load a kernel library file and declare its entry points."""
     handle = ctypes.CDLL(str(path))
-    for name, n_ptr in _ENTRY_POINTERS.items():
+    for name, argtypes in _ENTRY_POINTS.items():
         fn = getattr(handle, name)
         fn.restype = ctypes.c_int
-        fn.argtypes = [_P] * n_ptr + [ctypes.c_int, ctypes.c_longlong,
-                                      ctypes.c_longlong, _P]
+        fn.argtypes = argtypes
     handle.lzt_error_string.restype = ctypes.c_char_p
     handle.lzt_error_string.argtypes = [ctypes.c_int]
     return handle

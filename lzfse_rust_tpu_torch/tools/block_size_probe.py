@@ -34,8 +34,10 @@ def variant(threads: int):
     d.mkdir(parents=True, exist_ok=True)
     cu = d / "fse_decode.cu"
     cu.write_text(src.replace(SHIPPED, f"constexpr int kThreads = {threads};"))
+    # the other sources as shipped: the library must hold every entry point
+    rest = [s for s in sorted(B.CSRC.glob("*.cu")) if s.name != cu.name]
     return cuda_lib.load(B._build(d / "lib.so", [B._nvcc(), *B.NVCC_FLAGS],
-                                  [cu], ""))
+                                  [cu, *rest], ""))
 
 
 def main() -> int:

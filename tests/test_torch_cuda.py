@@ -4,13 +4,17 @@ without one). Like the port on the card, they import no JAX.
     python -m pytest tests/test_torch_cuda.py -m cuda -q
 """
 
+import numpy as np
 import pytest
 import torch
 
-from lzfse_rust_tpu_torch import TorchDecoder
+from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
+from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+from lzfse_rust_tpu_torch.ops.fse_encode import build_encode_tables
+from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.utils import corpus
-from torch_kit import blocks_of, port_args
+from torch_kit import blocks_of, encode_blocks, encode_rows, port_args
 
 
 @pytest.fixture(autouse=True)
@@ -50,3 +54,53 @@ def test_cuda_decoder_end_to_end():
     assert all(K.launches[k] == before[k] + 1 for k in before)
     assert set(stats["detail_device"]) == {"upload_ms", "kernels_ms",
                                            "download_ms"}
+
+
+@pytest.mark.cuda
+def test_cuda_encode_kernels_equal_plain_versions():
+    """On a card: each encode kernel equals its plain version bit for bit
+    on the defined columns and the final states."""
+    rng = np.random.default_rng(12)
+    raws = [corpus.make_raw(k, int(rng.integers(20_000, 90_000)), rng)
+            for k in ("text", "binary", "urls", "random")]
+    st = encode_rows(encode_blocks(raws), 10112)
+    cuda = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in st.items()}
+    e_l, e_m, e_d, e_u = build_encode_tables(cuda["weights"])
+    i32 = lambda x: torch.from_numpy(x).cuda()  # noqa: E731
+    cases = (
+        ("literals", KE.encode_literals, KE.encode_literals_ref,
+         dict(e_u=e_u, words=cuda["words"], num=cuda["lit_num"],
+              order=i32(KE.slot_order(
+                  KE.steps_of("literals", st["lit_num"], 10112))))),
+        ("lmds", KE.encode_lmds, KE.encode_lmds_ref,
+         dict(e_l=e_l, e_m=e_m, e_d=e_d, lm=cuda["lm"], d=cuda["d"],
+              num=cuda["lmd_num"], order=i32(KE.slot_order(st["lmd_num"])))))
+    for kind, fn, ref, args in cases:
+        before = KE.launches[fn.__name__]
+        got = KE.defined_columns(kind, fn(**args), args["num"])
+        torch.cuda.synchronize()
+        assert KE.launches[fn.__name__] == before + 1
+        want = KE.defined_columns(kind, ref(**args), args["num"])
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kind
+
+
+@pytest.mark.cuda
+def test_cuda_encoder_end_to_end():
+    """On a card: the encoder runs both kernels and writes the native
+    encoder's containers."""
+    raws = [r for r, _ in corpus.small_batch(seed=21, n_fse=5, lo=3_000,
+                                             hi=60_000)]
+    nat = native_runtime()
+    want = [nat.encode_bytes(r) for r in raws]
+    enc = TorchEncoder("cuda")
+    before = dict(KE.launches)
+    stats: dict = {}
+    assert enc.encode_many(raws, stats) == want
+    assert all(KE.launches[k] == before[k] + 1 for k in before)
+    assert set(stats["detail_device"]) == {"upload_ms", "kernels_ms",
+                                           "download_ms"}
+    big = max(raws, key=len)
+    assert enc.encode_bytes(big) == nat.encode_bytes(big)
+    assert all(KE.launches[k] == before[k] + 2 for k in before)

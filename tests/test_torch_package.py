@@ -13,6 +13,7 @@ import pytest
 import torch
 
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
+from lzfse_rust_tpu_torch.ops import cuda_encode as KE
 from lzfse_rust_tpu_torch.runtime import build
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -34,6 +35,9 @@ def test_import_leaves_jax_out():
         "import sys\n"
         "import lzfse_rust_tpu_torch\n"
         "import lzfse_rust_tpu_torch.ops.cuda_decode\n"
+        "import lzfse_rust_tpu_torch.ops.cuda_encode\n"
+        "import lzfse_rust_tpu_torch.ops.fse_encode\n"
+        "import lzfse_rust_tpu_torch.models.encoder\n"
         "import lzfse_rust_tpu_torch.runtime.cuda_lib\n"
         "import lzfse_rust_tpu_torch.utils.corpus\n"
         "import lzfse_rust_tpu_torch.utils.timing\n"
@@ -71,6 +75,8 @@ def test_sources_name_no_jax(path):
 def test_kernel_modules_import_without_nvcc():
     r = _python(
         "import lzfse_rust_tpu_torch.ops.cuda_decode as K\n"
+        "import lzfse_rust_tpu_torch.ops.cuda_encode as KE\n"
+        "import lzfse_rust_tpu_torch.models.encoder\n"
         "from lzfse_rust_tpu_torch.runtime import cuda_lib\n"
         "assert cuda_lib._LIB is None\n"
         "print('imported')\n", PATH="/nonexistent")
@@ -78,18 +84,31 @@ def test_kernel_modules_import_without_nvcc():
     assert "imported" in r.stdout
 
 
-def test_cuda_decoder_raises_without_cuda():
+def test_cpu_encode_loads_no_kernel_library():
+    from lzfse_rust_tpu_torch import TorchEncoder
+    from lzfse_rust_tpu_torch.runtime import cuda_lib
+    if cuda_lib._LIB is not None:
+        pytest.skip("the kernel library is already loaded")
+    data = b"the port encodes on the CPU without its kernels " * 200
+    enc = TorchEncoder("cpu")
+    assert enc.encode_many([data]) == [enc.encode_bytes(data)]
+    assert cuda_lib._LIB is None
+
+
+@pytest.mark.parametrize("model", ["TorchDecoder", "TorchEncoder"])
+def test_cuda_model_raises_without_cuda(model):
     if torch.cuda.is_available():
         pytest.skip("a CUDA device is present")
-    from lzfse_rust_tpu_torch import TorchDecoder
+    import lzfse_rust_tpu_torch
     with pytest.raises(RuntimeError, match="CUDA is not available"):
-        TorchDecoder("cuda")
+        getattr(lzfse_rust_tpu_torch, model)("cuda")
 
 
-def test_unsupported_device_raises():
-    from lzfse_rust_tpu_torch import TorchDecoder
+@pytest.mark.parametrize("model", ["TorchDecoder", "TorchEncoder"])
+def test_unsupported_device_raises(model):
+    import lzfse_rust_tpu_torch
     with pytest.raises(ValueError):
-        TorchDecoder("meta")
+        getattr(lzfse_rust_tpu_torch, model)("meta")
 
 
 def test_wrappers_have_no_path_for_other_devices():
@@ -101,6 +120,17 @@ def test_wrappers_have_no_path_for_other_devices():
         K.decode_lmds(z(2, 384), z(8), z(2), z(2), z(2, 3), z(2), z(2),
                       z(2), 0)
     assert K.launches == before
+
+
+def test_encode_wrappers_have_no_path_for_other_devices():
+    z = lambda *s: torch.zeros(s, dtype=torch.int32, device="meta")  # noqa: E731
+    before = dict(KE.launches)
+    with pytest.raises(ValueError, match="no kernel"):
+        KE.encode_literals(z(2, 256), z(2, 8), z(2), z(2))
+    with pytest.raises(ValueError, match="no kernel"):
+        KE.encode_lmds(z(2, 20), z(2, 20), z(2, 64), z(2, 8), z(2, 8), z(2),
+                       z(2))
+    assert KE.launches == before
 
 
 def test_build_kernels_without_nvcc_raises(monkeypatch):

@@ -1,12 +1,15 @@
 """Helpers shared by the port's tests: parse corpus containers into FSE
-blocks and build the port's kernel arguments from them. Imports no JAX,
-so the tests that run on a card can use it."""
+blocks and build the port's decode kernel arguments from them; split raw
+sources into the native frontend's blocks and stage them as the encode
+kernels take them. Imports no JAX, so the tests that run on a card can
+use it."""
 
 import numpy as np
 import torch
 
 from lzfse_rust_tpu.base import constants as C
 from lzfse_rust_tpu.models.decoder import _parse_container
+from lzfse_rust_tpu.models.encoder import TpuEncoder
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 
@@ -63,3 +66,44 @@ def port_args(blocks, kind):
     if kind == "literals":
         args["tot"] = i32(tot)
     return args, out_off
+
+
+def encode_blocks(sources) -> list:
+    """The native frontend's blocks of each source, in order:
+    ``(lits u8[], rows3 (n, 3) int32, n_match_bytes, weights (360,) int64)``
+    with the block's normalized weights."""
+    nat = native_runtime()
+    out = []
+    for src in sources:
+        for lits, rows3, n_mb in TpuEncoder._parse_blocks(
+                nat.frontend_blocks(src)):
+            w, _ = nat.block_weights(rows3, lits)
+            out.append((lits, rows3, n_mb, w.astype(np.int64)))
+    return out
+
+
+def encode_rows(blocks, n_cols: int, n_rows: int | None = None) -> dict:
+    """Blocks staged as the encode kernels read them (numpy): ``weights``
+    (B, 360) int64; right-justified ``words`` (literals padded to a multiple
+    of 4 with the first literal, 4 per int32), ``lm = l | m << 16`` and
+    ``d`` (B, n_cols) int32; counts ``lit_num`` (padded) and ``lmd_num``.
+    Rows past the blocks (up to ``n_rows``) are empty."""
+    B = len(blocks) if n_rows is None else n_rows
+    st = dict(weights=np.zeros((B, C.N_WEIGHTS), np.int64),
+              litw=np.zeros((B, n_cols * 4), np.uint8),
+              lm=np.zeros((B, n_cols), np.int32),
+              d=np.zeros((B, n_cols), np.int32),
+              lit_num=np.zeros(B, np.int32), lmd_num=np.zeros(B, np.int32))
+    for i, (lits, rows3, _, w) in enumerate(blocks):
+        st["weights"][i] = w
+        pad = (-len(lits)) % 4
+        padded = np.concatenate([lits, np.full(pad, lits[0] if len(lits)
+                                               else 0, np.uint8)])
+        st["litw"][i, n_cols * 4 - len(padded):] = padded
+        st["lit_num"][i] = len(padded)
+        nr = len(rows3)
+        st["lm"][i, n_cols - nr:] = rows3[:, 0] | (rows3[:, 1] << 16)
+        st["d"][i, n_cols - nr:] = rows3[:, 2]
+        st["lmd_num"][i] = nr
+    st["words"] = st.pop("litw").view("<i4")
+    return st
