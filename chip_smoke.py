@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode and encode once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving decode, encode and probes once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -12,22 +12,27 @@ Phases, one line each; any failure exits non-zero and prints no result:
 1. the card: ``nvidia-smi`` name and power limit, ``torch.cuda.is_available()``;
 2. build: the CUDA kernels (``csrc/*.cu`` -> ``build/liblzfse_torch_kernels.so``)
    and the native host runtime (-> ``build/libtpulzfse.so``), timed;
-3. corpus: a seeded serving batch from ``utils/corpus.py`` (at least
+3. probes: every body of the three probe kernels (``csrc/probes.cu``, the
+   TPU tools' op-mix microbenchmarks) must equal its plain PyTorch version
+   bit for bit on seeded inputs at a short length (each timed with CUDA
+   events); then the port's ``microbench_step`` (with ``--multisym``) and
+   ``microbench_vpu`` rows run at the TPU tools' step counts;
+4. corpus: a seeded serving batch from ``utils/corpus.py`` (at least
    128 MiB raw and 1,600 FSE blocks, containers of 16 KiB to 4 MiB plus
    LZVN, RAW and empty containers);
-4. kernels: on the batch's own kernel inputs each CUDA kernel must equal its
+5. kernels: on the batch's own kernel inputs each CUDA kernel must equal its
    plain PyTorch version bit for bit (decode: every output word, final
    states and positions; encode: every defined push group and the final
    states); each timed with CUDA events;
-5. slice: ``TorchDecoder("cuda").decode_many`` twice (warm-up, timed); every
+6. slice: ``TorchDecoder("cuda").decode_many`` twice (warm-up, timed); every
    output's SHA-256 must equal its raw input's, with no spec-layer fallback
    and both decode kernels launched; a small mixed batch must decode to its
    raw inputs;
-6. encode: ``TorchEncoder("cuda").encode_many`` on the batch's raw inputs
+7. encode: ``TorchEncoder("cuda").encode_many`` on the batch's raw inputs
    twice (warm-up, timed); every output must equal its corpus container
    (made by the native encoder), with both encode kernels launched;
    ``encode_bytes`` must do the same on the largest and a small input;
-7. the kernels' JSON line, then the result line
+8. the kernels' JSON line (all seven), then the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Each path's launch counts are set to 0 just before its timed run and read
@@ -59,6 +64,15 @@ KERNELS = (
     ("encode_lmds", "lzfse_rust_tpu_torch/csrc/fse_encode.cu",
      "lzfse_rust_tpu/ops/pallas_encode.py:291"),
 )
+PROBES = (
+    ("probe_step", "lzfse_rust_tpu_torch/csrc/probes.cu",
+     "tools/microbench_step.py:38"),
+    ("probe_chain", "lzfse_rust_tpu_torch/csrc/probes.cu",
+     "tools/microbench_vpu.py:36"),
+    ("probe_tput", "lzfse_rust_tpu_torch/csrc/probes.cu",
+     "tools/microbench_vpu.py:112"),
+)
+CHECK_STEPS = {"probe_step": 64, "probe_chain": 16, "probe_tput": 16}
 
 
 class PhaseError(RuntimeError):
@@ -118,6 +132,19 @@ def corpus(seed: int):
     return pairs, n_fse
 
 
+def _event_ms(fn):
+    """(result, CUDA-event milliseconds) of one call of ``fn``."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    end.synchronize()
+    return out, start.elapsed_time(end)
+
+
 def kernels(dec, enc, pairs) -> list[dict]:
     """Each kernel on the batch's own arguments against its plain version,
     both timed with CUDA events (the plain version once)."""
@@ -146,14 +173,7 @@ def kernels(dec, enc, pairs) -> list[dict]:
                                                                   runs):
         fn, ref = getattr(mod, name), getattr(mod, name + "_ref")
         got = defined(fn(**args))
-        torch.cuda.synchronize()
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        start.record()
-        want = ref(**args)
-        end.record()
-        end.synchronize()
-        plain_ms = start.elapsed_time(end)
+        want, plain_ms = _event_ms(lambda: ref(**args))
         want = defined(want)
         err = max(int((g.long() - w.long()).abs().max()) if g.numel() else 0
                   for g, w in zip(got, want))
@@ -170,9 +190,88 @@ def kernels(dec, enc, pairs) -> list[dict]:
 
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
-    from lzfse_rust_tpu_torch.ops import cuda_decode, cuda_encode
+    from lzfse_rust_tpu_torch.ops import cuda_decode, cuda_encode, cuda_probes
     cuda_decode.reset_launches()
     cuda_encode.reset_launches()
+    cuda_probes.reset_launches()
+
+
+def probe_cases(seed: int):
+    """(kernel, body, args) for every body of the three probe kernels: at
+    the TPU tools' input ranges (one vreg) and at any int32 (two vregs)."""
+    import numpy as np
+    import torch
+    from lzfse_rust_tpu_torch.ops import cuda_probes as P
+    rng = np.random.default_rng(seed)
+    i32 = np.iinfo(np.int32)
+
+    def draw(shape, lo, hi):
+        return torch.from_numpy(rng.integers(lo, hi, shape, dtype=np.int64)
+                                .astype(np.int32)).cuda()
+
+    for wide, nv in ((False, 1), (True, 2)):
+        full = (i32.min, i32.max + 1)
+        for body, tw in P.STEP_BODIES.items():
+            yield "probe_step", body, (
+                draw((8, P.G * tw), *(full if wide else (0, 1024))),
+                draw((8, P.G * 256), *(full if wide else (0, i32.max))),
+                draw((8 * nv, 128), *(full if wide else (0, 128))))
+        for kernel, bodies in (("probe_chain", P.CHAIN_BODIES),
+                               ("probe_tput", P.TPUT_BODIES)):
+            for body in bodies:
+                rng_ = full if wide else (0, 128)
+                yield kernel, body, (draw((8, 1024), *rng_),
+                                     draw((8, 128), *rng_))
+
+
+def probes(seed: int) -> list[dict]:
+    """Every probe body against its plain version, then the port's probe
+    tools' rows as the probes' main path."""
+    from lzfse_rust_tpu_torch.ops import cuda_probes as P
+    from lzfse_rust_tpu_torch.tools import microbench_step as PS
+    from lzfse_rust_tpu_torch.tools import microbench_vpu as PV
+    sums = {name: {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bodies": 0,
+                   "bad": []} for name, _, _ in PROBES}
+    for kernel, body, args in probe_cases(seed):
+        fn, ref = getattr(P, kernel), getattr(P, kernel + "_ref")
+        n = CHECK_STEPS[kernel]
+        fn(body, *args, n)   # warm-up: first launch of this body
+        got, ms = _event_ms(lambda: fn(body, *args, n))
+        want, plain_ms = _event_ms(lambda: ref(body, *args, n))
+        err = int((got.long() - want.long()).abs().max())
+        acc = sums[kernel]
+        acc["ms"] += ms
+        acc["plain_ms"] += plain_ms
+        acc["err"] = max(acc["err"], err)
+        acc["bodies"] += 1
+        if err:
+            acc["bad"].append(body)
+    rows = []
+    for name, src, replaces in PROBES:
+        acc = sums[name]
+        phase("probes", not acc["bad"],
+              f"{name}: {acc['bodies']} body cases at {CHECK_STEPS[name]} "
+              f"steps, bit-exact={not acc['bad']} {acc['bad'] or ''}, "
+              f"max_abs_err={acc['err']}, kernels {acc['ms']:.4f} ms, "
+              f"plain {acc['plain_ms']:.1f} ms")
+        rows.append({"name": name, "route": "cuda", "source": src,
+                     "replaces": replaces, "launches": 0,
+                     "max_abs_err": acc["err"], "ms": acc["ms"],
+                     "plain_ms": acc["plain_ms"]})
+    reset_launches()
+    t = time.perf_counter()
+    for mod, rows_of in ((PS, PS.ROWS + PS.MULTISYM_ROWS), (PV, PV.ROWS)):
+        for row in rows_of:
+            print(f"[probes] {mod.report(mod.measure(row, seed))}",
+                  flush=True)
+    launches = dict(P.launches)
+    phase("probes", all(n > 0 for n in launches.values()),
+          f"{len(PS.ROWS) + len(PS.MULTISYM_ROWS) + len(PV.ROWS)} tool rows "
+          f"at the TPU tools' step counts in {time.perf_counter() - t:.1f} s, "
+          f"launches {launches}")
+    for r in rows:
+        r["launches"] = launches[r["name"]]
+    return rows
 
 
 def slice_run(dec, pairs) -> dict:
@@ -268,6 +367,7 @@ def main() -> int:
     try:
         kind = card()
         build()
+        probe_rows = probes(SEED)
         pairs, _ = corpus(SEED)
         import torch
         from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
@@ -278,6 +378,7 @@ def main() -> int:
         launches.update(encode_run(enc, pairs))
         for r in rows:
             r["launches"] = launches[r["name"]]
+        rows += probe_rows
         phase("launches", all(r["launches"] > 0 for r in rows),
               f"{ {r['name']: r['launches'] for r in rows} }")
     except PhaseError as exc:

@@ -27,6 +27,13 @@ _ENTRY_POINTS = {
     # (csrc/fse_encode.cu)
     "lzt_encode_literals": [_P] * 7 + [_I, _I, _P],
     "lzt_encode_lmds": [_P] * 10 + [_I, _I, _P],
+    # body; tab, chunk, x, out; n_rows, n_steps, stream (csrc/probes.cu)
+    "lzt_probe_step": [_I] + [_P] * 4 + [_I, _I, _P],
+    # body -> 1 table in shared memory, 0 in device memory, -1 unknown
+    "lzt_probe_step_shared": [_I],
+    # body; tab, x, out; n_steps, stream
+    "lzt_probe_chain": [_I] + [_P] * 3 + [_I, _P],
+    "lzt_probe_tput": [_I] + [_P] * 3 + [_I, _P],
 }
 
 _LIB = None

@@ -1,0 +1,72 @@
+"""End-to-end encode on the card: ``TorchEncoder.encode_many`` over the
+serving batch's raw inputs, with its stage split.
+
+    python3 -m lzfse_rust_tpu_torch.tools.bench_encode_e2e [RUNS]
+
+Port of the JAX package's ``tools/bench_encode_e2e.py``. One warm-up
+``encode_many`` (every output must equal its corpus container, which the
+native encoder wrote), then ``RUNS`` (default 5) timed runs with ``stats``.
+The wall, each host stage and each CUDA-event device stage is the
+second-smallest over the runs. Unlike the JAX tool, the device is timed
+inside the real call (CUDA events), not modelled from in-jit repetition.
+The JAX tool's ``LZT_ENC_DEVFE`` part (the device match finder) waits for
+its port (ROADMAP Queue 1 item 6). The last line is one JSON object.
+"""
+
+from __future__ import annotations
+
+import json
+import sys
+import time
+
+from ..utils import corpus as CP
+from .common import require_card, second_smallest, serving_pairs
+
+
+def main(argv=None) -> int:
+    from .. import TorchEncoder
+    argv = sys.argv[1:] if argv is None else argv
+    require_card("bench_encode_e2e")
+    runs = int(argv[0]) if argv else 5
+    pairs = [(r, c) for r, c in serving_pairs() if c != CP.EMPTY]
+    raws = [r for r, _ in pairs]
+    total = sum(map(len, raws))
+    enc = TorchEncoder("cuda")
+    outs = enc.encode_many(raws)
+    bad = sum(o != c for o, (_, c) in zip(outs, pairs))
+    if bad:
+        raise RuntimeError(f"{bad} outputs differ from the native encoder's")
+    walls, stats = [], []
+    for _ in range(runs):
+        st: dict = {}
+        t = time.perf_counter()
+        enc.encode_many(raws, st)
+        walls.append(time.perf_counter() - t)
+        stats.append(st)
+    wall = second_smallest(walls)
+    host = {k: second_smallest([s[k] for s in stats]) * 1e3
+            for k in ("small", "frontend", "emit_prep", "emit_kernels",
+                      "pack")}
+    dev = {k: second_smallest([s["detail_device"][k] for s in stats])
+           for k in stats[0]["detail_device"]}
+    out = {"metric": "full_encode_GBps", "value": total / wall / 1e9,
+           "raw_bytes": total, "n_sources": len(raws), "runs": runs,
+           "wall_ms": wall * 1e3, "stages_ms": host,
+           "detail_device_ms": dev,
+           "upload_bytes": stats[0]["upload_bytes"],
+           "download_bytes": stats[0]["download_bytes"],
+           "byte_identical": True}
+    print(f"{len(raws)} sources, {total} raw bytes: encode_many "
+          f"{wall * 1e3:.3f} ms = {total / wall / 1e9:.4f} GB/s "
+          f"(2nd-smallest of {runs}); every output equals the native "
+          f"encoder's", flush=True)
+    print("stages ms " + ", ".join(f"{k} {v:.3f}" for k, v in host.items())
+          + "; device events ms " + ", ".join(f"{k} {v:.3f}"
+                                               for k, v in dev.items()),
+          flush=True)
+    print(json.dumps(out))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

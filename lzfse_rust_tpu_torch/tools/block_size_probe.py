@@ -11,7 +11,6 @@ times in two rounds of opposite order. Exits 1 if a variant disagrees.
 
 from __future__ import annotations
 
-import subprocess
 import sys
 
 import torch
@@ -20,6 +19,7 @@ from ..ops import cuda_decode as K
 from ..runtime import build as B, cuda_lib
 from ..utils import corpus as CP
 from ..utils.timing import cuda_ms
+from .common import require_card
 
 SIZES = (32, 64, 128, 256)
 SHIPPED = "constexpr int kThreads = 128;"
@@ -36,15 +36,12 @@ def variant(threads: int):
     cu.write_text(src.replace(SHIPPED, f"constexpr int kThreads = {threads};"))
     # the other sources as shipped: the library must hold every entry point
     rest = [s for s in sorted(B.CSRC.glob("*.cu")) if s.name != cu.name]
-    return cuda_lib.load(B._build(d / "lib.so", [B._nvcc(), *B.NVCC_FLAGS],
-                                  [cu, *rest], ""))
+    return cuda_lib.load(B.kernel_library(d / "lib.so", [cu, *rest]))
 
 
-def main() -> int:
+def main(argv=None) -> int:
     from .. import TorchDecoder
-    print(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip(), flush=True)
+    require_card("block_size_probe")
     libs = {t: variant(t) for t in SIZES}
     pairs = CP.serving_batch(seed=0)
     lit, lmd = TorchDecoder("cuda").kernel_args([c for _, c in pairs])

@@ -201,6 +201,22 @@ def serving_batch(seed: int = 0, min_bytes: int = SERVING_BYTES,
     return _with_small(raws, rng)
 
 
+def kind_batch(kind: str, seed: int = 0, min_bytes: int = 24 << 20,
+               lo: int = 16 << 10,
+               hi: int = 4 << 20) -> list[tuple[bytes, bytes]]:
+    """``(raw, container)`` pairs of one kind only: containers of ``lo`` to
+    ``hi`` raw bytes (log-uniform sizes) until ``min_bytes`` raw."""
+    rng = np.random.default_rng(seed)
+    pairs: list[tuple[bytes, bytes]] = []
+    total = 0
+    while total < min_bytes:
+        raw = make_raw(kind, int(np.exp(rng.uniform(np.log(lo), np.log(hi)))),
+                       rng)
+        pairs.append((raw, encode(raw)))
+        total += len(raw)
+    return pairs
+
+
 def small_batch(seed: int = 0, n_fse: int = 6, lo: int = 6_000,
                 hi: int = 40_000) -> list[tuple[bytes, bytes]]:
     """A small mixed batch for the CPU tests: ``n_fse`` FSE containers of

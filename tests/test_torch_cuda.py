@@ -11,8 +11,10 @@ import torch
 from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
 from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+from lzfse_rust_tpu_torch.ops import cuda_probes as P
 from lzfse_rust_tpu_torch.ops.fse_encode import build_encode_tables
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
+from lzfse_rust_tpu_torch.tools import microbench_step as PS
 from lzfse_rust_tpu_torch.utils import corpus
 from torch_kit import blocks_of, encode_blocks, encode_rows, port_args
 
@@ -104,3 +106,51 @@ def test_cuda_encoder_end_to_end():
     big = max(raws, key=len)
     assert enc.encode_bytes(big) == nat.encode_bytes(big)
     assert all(KE.launches[k] == before[k] + 2 for k in before)
+
+
+@pytest.mark.cuda
+def test_cuda_step_memory_follows_the_shared_memory_limit():
+    """The kernel library's placement: 32 KB to 128 KB row tables live in
+    shared memory, the 288 KB pair table in device memory."""
+    assert {b: P.step_memory(b) for b in P.STEP_BODIES} == {
+        **{b: "shared" for b in P.STEP_BODIES}, "pair_64": "global"}
+    assert P.cuda_lib.lib().lzt_probe_step_shared(len(P.STEP_BODIES)) == -1
+
+
+PROBE_CASES = ([("probe_step", b) for b in P.STEP_BODIES]
+               + [("probe_chain", b) for b in P.CHAIN_BODIES]
+               + [("probe_tput", b) for b in P.TPUT_BODIES])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kernel,body", PROBE_CASES,
+                         ids=[f"{k}-{b}" for k, b in PROBE_CASES])
+def test_cuda_probe_kernels_equal_plain_versions(kernel, body):
+    """On a card: each probe body equals its plain version bit for bit, at
+    the TPU tools' input ranges and at any int32 (wrap-around, signed
+    shifts)."""
+    rng = np.random.default_rng(31)
+    i32 = np.iinfo(np.int32)
+
+    def wide(shape):
+        return torch.from_numpy(rng.integers(i32.min, i32.max + 1, shape,
+                                             dtype=np.int64)
+                                .astype(np.int32)).cuda()
+
+    fn, ref = getattr(P, kernel), getattr(P, kernel + "_ref")
+    if kernel == "probe_step":
+        tw = P.STEP_BODIES[body]
+        cases = (PS.inputs(body, 2, seed=31),
+                 (wide((8, P.G * tw)), wide((8, P.G * 256)), wide((24, 128))))
+        n = 8
+    else:
+        tab, x = (torch.from_numpy(rng.integers(0, 128, s).astype(np.int32))
+                  .cuda() for s in ((8, 1024), (8, 128)))
+        cases = ((tab, x), (wide((8, 1024)), wide((8, 128))))
+        n = 3
+    for args in cases:
+        before = P.launches[kernel]
+        got = fn(body, *args, n)
+        torch.cuda.synchronize()
+        assert P.launches[kernel] == before + 1
+        assert torch.equal(got, ref(body, *args, n)), (kernel, body)

@@ -145,10 +145,10 @@ def test_failed_build_carries_compiler_stderr(tmp_path, monkeypatch):
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path)
     src = tmp_path / "broken.cpp"
     src.write_text("int broken( {\n")
+    cxx = shutil.which("g++") or "g++"
     with pytest.raises(build.BuildError, match="broken.cpp") as exc:
-        build._build(tmp_path / "libbroken.so",
-                     [shutil.which("g++") or "g++", "-shared", "-fPIC"],
-                     [src], "")
+        build._build(tmp_path / "libbroken.so", [cxx, "-fPIC"],
+                     [cxx, "-shared"], [src], "")
     assert "error" in str(exc.value)
     assert not (tmp_path / "libbroken.so").exists()
 

@@ -1,0 +1,232 @@
+"""The port's measurement tools (``lzfse_rust_tpu_torch/tools``) on the CPU:
+the parts that need no card, and the refusal to run without one.
+
+Every tool measures the CUDA device, so on the CPU each must print the
+card line and raise ``NoCardError`` before it does any work. Their pure
+parts (the shape model's counts, the timing arithmetic, the corpus kinds,
+the checks' verdicts, the rebuild capture, the runbook's resume) run here
+on small seeded batches.
+"""
+
+import hashlib
+import os
+import pathlib
+import pkgutil
+import shutil
+import subprocess
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import lzfse_rust_tpu_torch.tools as tools_pkg
+from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
+from lzfse_rust_tpu_torch.runtime.build import native_runtime
+from lzfse_rust_tpu_torch.tools import bench_rebuild, bench_stage_split
+from lzfse_rust_tpu_torch.tools import check_corpus
+from lzfse_rust_tpu_torch.tools import check_encoder_corpus, common
+from lzfse_rust_tpu_torch.tools import predict_utilization as PU
+from lzfse_rust_tpu_torch.utils import corpus as CP
+
+ROOT = pathlib.Path(__file__).resolve().parents[1]
+QUEUE = ROOT / "lzfse_rust_tpu_torch" / "tools" / "run_card_queue.sh"
+TOOLS = sorted(m.name for m in pkgutil.iter_modules(tools_pkg.__path__)
+               if m.name != "common")
+
+
+def _import(name: str):
+    return __import__(f"lzfse_rust_tpu_torch.tools.{name}",
+                      fromlist=["main"])
+
+
+def test_tool_modules_import_without_cuda_or_jax():
+    code = ("import sys\n"
+            + "".join(f"import lzfse_rust_tpu_torch.tools.{t}\n"
+                      for t in TOOLS)
+            + "from lzfse_rust_tpu_torch.runtime import cuda_lib\n"
+            "assert cuda_lib._LIB is None\n"
+            "bad = sorted(m for m in sys.modules if m.split('.')[0] == 'jax')\n"
+            "assert not bad, bad\n"
+            "print('imported')\n")
+    r = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "PATH": "/nonexistent",
+                            "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == 0, r.stderr
+    assert "imported" in r.stdout
+
+
+@pytest.mark.parametrize("name", TOOLS)
+def test_tool_raises_without_a_card(name, monkeypatch, capsys):
+    """Each tool prints the card line first and refuses to run: no
+    fallback to the CPU or to a plain version."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(common, "card_line", lambda: "CARD LINE")
+    with pytest.raises(common.NoCardError, match=f"{name} measures the CUDA"):
+        _import(name).main([])
+    assert capsys.readouterr().out.splitlines() == ["CARD LINE"]
+
+
+def test_warp_waste_counts_the_longest_stream_per_warp():
+    equal = PU.warp_waste([10] * 64)
+    assert (equal["warps"], equal["useful"], equal["issued"],
+            equal["wasted_share"]) == (2, 640, 640, 0.0)
+    one = PU.warp_waste([7], warp=4)
+    assert (one["issued"], one["wasted_share"]) == (28, 0.75)
+    # longest first: 8 and 7 share a warp, 2 and 1 the next
+    w = PU.warp_waste([1, 8, 2, 7], warp=2)
+    assert (w["issued"], w["useful"]) == (2 * 8 + 2 * 2, 18)
+    assert PU.warp_waste([])["wasted_share"] == 0.0
+
+
+def test_scaled_takes_a_prefix_or_replicas():
+    s = np.arange(16)
+    assert PU.scaled(s, 0.25).tolist() == [0, 1, 2, 3]
+    assert PU.scaled(s, 2).tolist() == s.tolist() * 2
+    assert len(PU.scaled(s[:3], 0.125)) == 1
+
+
+def test_step_counts_follow_the_containers():
+    """Decode step counts are the containers' block headers (literals by
+    4, L/M/D rows); re-encoding the raw inputs stages the same blocks (the
+    corpus containers are the native encoder's), plus the period-split
+    alternatives."""
+    pairs = CP.serving_batch(seed=5, min_bytes=1 << 20)
+    counts = PU.step_counts(pairs)
+    desc = native_runtime().walk_batch([c for _, c in pairs])[0]
+    lit_n = desc[:, 1].astype(np.int64)
+    lmd_n = desc[:, 2].astype(np.int64)
+    assert sorted(counts["decode literals"]) == sorted((lit_n + 3) // 4)
+    assert sorted(counts["decode lmds"]) == sorted(lmd_n)
+    enc_l = counts["encode literals"].tolist()
+    enc_m = counts["encode lmds"].tolist()
+    assert len(enc_l) == len(enc_m) >= len(desc)
+    for want, got in (((lit_n + 3) // 4, enc_l), (lmd_n, enc_m)):
+        rest = list(got)
+        for v in want.tolist():
+            rest.remove(v)   # every decoded block has its staged slot
+        assert len(rest) == len(got) - len(desc)
+
+
+def test_per_step_ms_cancels_the_fixed_cost(monkeypatch):
+    """(t(n) - t(n/8)) / (7n/8): a launch costing 5 ms + 2 us per step
+    gives 2 us per step."""
+    last = []
+
+    def fake_cuda_ms(fn, reps, warmup):
+        fn()
+        return 5.0 + 0.002 * last[-1]
+
+    monkeypatch.setattr(common, "cuda_ms", fake_cuda_ms)
+    ms = common.per_step_ms(lambda n: last.append(n), 20_000)
+    assert last == [2_500, 20_000]
+    assert ms == pytest.approx(0.002)
+
+
+def test_second_smallest():
+    assert common.second_smallest([3.0, 1.0, 2.0]) == 2.0
+    assert common.second_smallest([4.0]) == 4.0
+
+
+@pytest.mark.parametrize("kind", CP.KINDS)
+def test_kind_batch_holds_one_kind(kind):
+    pairs = CP.kind_batch(kind, seed=2, min_bytes=64 << 10, lo=4 << 10,
+                          hi=32 << 10)
+    assert pairs == CP.kind_batch(kind, seed=2, min_bytes=64 << 10,
+                                  lo=4 << 10, hi=32 << 10)
+    raws = [r for r, _ in pairs]
+    assert sum(map(len, raws)) >= 64 << 10
+    assert all(4 << 10 <= len(r) <= 32 << 10 for r in raws)
+    rng = np.random.default_rng(2)
+    size = int(np.exp(rng.uniform(np.log(4 << 10), np.log(32 << 10))))
+    assert raws[0] == CP.make_raw(kind, size, rng)
+    native = native_runtime()
+    assert all(native.decode_bytes(c) == r for r, c in pairs)
+
+
+def test_check_corpus_counts_mismatches_and_fallbacks(capsys):
+    small = CP.small_batch(seed=1, n_fse=2, lo=6_000, hi=12_000)
+    sources = [c for _, c in small]
+    assert check_corpus.check(TorchDecoder("cpu"), "small", sources) == 0
+    assert "0 mismatches, 0 fallbacks" in capsys.readouterr().out
+
+    class Wrong:
+        def decode_many(self, srcs, stats):
+            stats["fallbacks"] = 1
+            return [b"x"] + [native_runtime().decode_bytes(s)
+                             for s in srcs[1:]]
+
+    assert check_corpus.check(Wrong(), "small", sources) == 2
+    out = capsys.readouterr().out
+    assert "MISMATCH small[0]" in out and "1 mismatches, 1 fallbacks" in out
+
+
+def test_check_encoder_corpus_counts_mismatches(capsys):
+    raws = [r for r, _ in CP.small_batch(seed=1, n_fse=2, lo=6_000,
+                                         hi=12_000)]
+    got = TorchEncoder("cpu").encode_many(raws)
+    assert check_encoder_corpus.check("small", raws, got) == 0
+    got[-1] = got[0]
+    assert check_encoder_corpus.check("small", raws, got) == 1
+    assert f"MISMATCH small[{len(raws) - 1}]" in capsys.readouterr().out
+
+
+def test_bench_rebuild_captures_the_one_rebuild_call():
+    small = CP.small_batch(seed=4, n_fse=2, lo=6_000, hi=12_000)
+    native = native_runtime()
+    real = native.flatten_rebuild
+    outs, stats, (args, kwargs) = bench_rebuild.capture(
+        TorchDecoder("cpu"), [c for _, c in small])
+    assert native.flatten_rebuild is real
+    assert [hashlib.sha256(o).digest() for o in outs] == [
+        hashlib.sha256(r).digest() for r, _ in small]
+    assert stats.get("fallbacks", 0) == 0 and "rebuild" in stats
+    assert (real(*args, **kwargs) >= 0).all()   # the call replays
+
+
+def test_stage_split_summary_rates():
+    s = bench_stage_split.summary(
+        {"upload": 2.0, "literals": 6.0, "lmds": 2.0}, n_lit=12_000,
+        n_lmd=1_000, raw=40_000_000, upload_bytes=8_000_000)
+    assert (s["literal_Msym_s"], s["lmd_Msym_s"]) == (2.0, 0.5)
+    assert (s["entropy_GBps"], s["total_GBps"], s["upload_GBps"]) == (
+        5.0, 4.0, 4.0)
+
+
+def test_card_queue_keeps_its_markers_in_its_checkout(tmp_path):
+    """Without ``CARDQ_DIR`` the logs and ``.ok`` markers live under the
+    checkout's ``build/cardq``: a job done in one tree is not skipped in
+    another."""
+    trees = [tmp_path / "a", tmp_path / "b"]
+    for tree in trees:
+        (tree / "lzfse_rust_tpu_torch" / "tools").mkdir(parents=True)
+        shutil.copy(QUEUE, tree / "lzfse_rust_tpu_torch" / "tools")
+    (trees[0] / "build" / "cardq").mkdir(parents=True)
+    (trees[0] / "build" / "cardq" / "util.ok").touch()
+    env = {k: v for k, v in os.environ.items() if k != "CARDQ_DIR"}
+    runs = [subprocess.run(["bash", str(t / QUEUE.relative_to(ROOT)), "util"],
+                           capture_output=True, text=True, timeout=120,
+                           env={**env, "CUDA_VISIBLE_DEVICES": ""})
+            for t in trees]
+    assert runs[0].returncode == 0 and "SKIP util (done)" in runs[0].stdout
+    assert runs[1].returncode != 0 and "RUN  util" in runs[1].stdout
+    assert (trees[1] / "build" / "cardq" / "util.log").exists()
+    assert not (trees[1] / "build" / "cardq" / "util.ok").exists()
+
+
+def test_card_queue_lists_every_tool_and_resumes(tmp_path):
+    text = QUEUE.read_text()
+    assert subprocess.run(["bash", "-n", str(QUEUE)]).returncode == 0
+    for name in TOOLS:
+        if name != "block_size_probe":
+            assert f" {name}" in text, name
+    jobs = [line.split("&&")[0].split()[1] for line in text.splitlines()
+            if line.startswith("want ")]
+    for job in jobs:
+        (tmp_path / f"{job}.ok").touch()
+    r = subprocess.run(["bash", str(QUEUE)], capture_output=True, text=True,
+                       timeout=60, env={**os.environ, "CARDQ_DIR": str(tmp_path)})
+    assert r.returncode == 0, r.stdout + r.stderr
+    assert [line.split()[1] for line in r.stdout.splitlines()
+            if line.startswith("SKIP")] == jobs
