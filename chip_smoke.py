@@ -32,7 +32,10 @@ Phases, one line each; any failure exits non-zero and prints no result:
    twice (warm-up, timed); every output must equal its corpus container
    (made by the native encoder), with both encode kernels launched;
    ``encode_bytes`` must do the same on the largest and a small input;
-8. the kernels' JSON line (all seven), then the result line
+8. the kernels' JSON line (all seven, each with its time, its plain
+   version's time and its bound: the larger of the bytes it must move over
+   the card's memory rate and its operations over the card's peak rate,
+   counted from this run's inputs), then the result line
    ``{"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}``.
 
 Each path's launch counts are set to 0 just before its timed run and read
@@ -73,6 +76,17 @@ PROBES = (
      "tools/microbench_vpu.py:112"),
 )
 CHECK_STEPS = {"probe_step": 64, "probe_chain": 16, "probe_tput": 16}
+
+# The bound of a kernel (H100 SXM datasheet peak rates):
+# bytes at the device memory rate, operations at the 32-bit rate outside the
+# tensor cores (the table's float32 row stands for the 32-bit integer ops
+# these kernels do). A codec kernel does at least OPS_PER_SYMBOL operations
+# per symbol it codes (table lookup, bit shift, mask, add, position update);
+# a probe body at least one per element of its tile per op of its step.
+HBM_BYTES_PER_S = 3.35e12
+OPS_PER_S = 67e12
+OPS_PER_SYMBOL = 5
+PROBE_OPS_PER_STEP = {"probe_step": 1, "probe_chain": 32, "probe_tput": 16}
 
 
 class PhaseError(RuntimeError):
@@ -132,6 +146,53 @@ def corpus(seed: int):
     return pairs, n_fse
 
 
+def bound(n_bytes: int, n_ops: int) -> tuple[float, str]:
+    """(least milliseconds, what bounds it) for moving ``n_bytes`` and
+    doing ``n_ops`` on the card."""
+    t_bytes = n_bytes / HBM_BYTES_PER_S
+    t_ops = n_ops / OPS_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
+
+
+def codec_work(name: str, args: dict, outs) -> tuple[int, int]:
+    """(bytes, operations) a codec kernel needs on these arguments: every
+    input read once (of the row inputs, only the words a stream or a row's
+    steps use), every output written once (encode: the defined columns)."""
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    if name.startswith("decode"):
+        words = int(args["word_len"].clamp(min=0).sum()) * 4
+        small = _nbytes(*(v for k, v in args.items()
+                          if k != "words" and hasattr(v, "numel")))
+        num = args["num"].clamp(min=0).long()
+        symbols = int(num.sum()) * (1 if name == "decode_literals" else 3)
+        return small + words + _nbytes(*outs), symbols * OPS_PER_SYMBOL
+    kind = name.split("_")[1]
+    steps = int(KE.steps_of(kind, args["num"], 1 << 30).sum())
+    rows = ("words",) if kind == "literals" else ("lm", "d")
+    small = _nbytes(*(v for k, v in args.items() if k not in rows))
+    lanes = 4 if kind == "literals" else 3
+    # outputs: two words a step (group) and the final states
+    n_out = steps * 2 * 4 + _nbytes(outs[2])
+    return (small + steps * len(rows) * 4 + n_out,
+            steps * lanes * OPS_PER_SYMBOL)
+
+
+def longest_steps(name: str, args: dict) -> int:
+    """Steps of the longest stream: the length of a codec kernel's chain."""
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    num = args["num"].long().clamp(min=0)
+    if name == "decode_literals":
+        return int(((num + 3) // 4).max())
+    if name == "decode_lmds":
+        return int(num.max())
+    return int(KE.steps_of(name.split("_")[1], args["num"], 1 << 30).max())
+
+
 def _event_ms(fn):
     """(result, CUDA-event milliseconds) of one call of ``fn``."""
     import torch
@@ -179,12 +240,19 @@ def kernels(dec, enc, pairs) -> list[dict]:
                   for g, w in zip(got, want))
         same = all(torch.equal(g, w) for g, w in zip(got, want))
         ms = cuda_ms(lambda: fn(**args), reps=10, warmup=2)
+        n_bytes, n_ops = codec_work(name, args, got)
+        bound_ms, bound_by = bound(n_bytes, n_ops)
         phase("kernel", same and err == 0,
               f"{name}: {shape}, bit-exact={same}, max_abs_err={err}, "
-              f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms")
+              f"kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, bound "
+              f"{bound_ms:.4f} ms ({n_bytes} bytes, {n_ops} ops: "
+              f"{bound_by}), longest stream {longest_steps(name, args)} "
+              f"steps")
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": 0,
-                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+                     "max_abs_err": err, "ms": ms, "plain_ms": plain_ms,
+                     "bound_ms": bound_ms, "bound_by": bound_by,
+                     "library_ms": None})
     return rows
 
 
@@ -231,7 +299,8 @@ def probes(seed: int) -> list[dict]:
     from lzfse_rust_tpu_torch.tools import microbench_step as PS
     from lzfse_rust_tpu_torch.tools import microbench_vpu as PV
     sums = {name: {"ms": 0.0, "plain_ms": 0.0, "err": 0, "bodies": 0,
-                   "bad": []} for name, _, _ in PROBES}
+                   "bad": [], "bound": 0.0, "t_bytes": 0.0, "t_ops": 0.0}
+            for name, _, _ in PROBES}
     for kernel, body, args in probe_cases(seed):
         fn, ref = getattr(P, kernel), getattr(P, kernel + "_ref")
         n = CHECK_STEPS[kernel]
@@ -244,6 +313,12 @@ def probes(seed: int) -> list[dict]:
         acc["plain_ms"] += plain_ms
         acc["err"] = max(acc["err"], err)
         acc["bodies"] += 1
+        # each body case is a launch of its own, with its own bound
+        n_bytes = _nbytes(*args, got)
+        n_ops = n * args[-1].numel() * PROBE_OPS_PER_STEP[kernel]
+        acc["bound"] += bound(n_bytes, n_ops)[0]
+        acc["t_bytes"] += bound(n_bytes, 0)[0]
+        acc["t_ops"] += bound(0, n_ops)[0]
         if err:
             acc["bad"].append(body)
     rows = []
@@ -257,7 +332,10 @@ def probes(seed: int) -> list[dict]:
         rows.append({"name": name, "route": "cuda", "source": src,
                      "replaces": replaces, "launches": 0,
                      "max_abs_err": acc["err"], "ms": acc["ms"],
-                     "plain_ms": acc["plain_ms"]})
+                     "plain_ms": acc["plain_ms"], "bound_ms": acc["bound"],
+                     "bound_by": ("bytes" if acc["t_bytes"] >= acc["t_ops"]
+                                  else "operations"),
+                     "library_ms": None})
     reset_launches()
     t = time.perf_counter()
     for mod, rows_of in ((PS, PS.ROWS + PS.MULTISYM_ROWS), (PV, PV.ROWS)):
@@ -358,10 +436,9 @@ def encode_run(enc, pairs) -> dict:
 
 
 def main() -> int:
-    if not (ROOT / "lzfse_rust_tpu_torch").is_dir() or \
-            not (ROOT / "lzfse_rust_tpu").is_dir():
-        print("chip_smoke: the repository's packages are not beside this "
-              "script", file=sys.stderr)
+    if not (ROOT / "lzfse_rust_tpu_torch").is_dir():
+        print("chip_smoke: the package lzfse_rust_tpu_torch is not beside "
+              "this script", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT))
     try:

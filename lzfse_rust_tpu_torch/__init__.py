@@ -2,9 +2,10 @@
 
 A port of ``lzfse_rust_tpu`` (JAX on a TPU) to PyTorch with kernels written
 by hand for the NVIDIA H100 (``sm_90a``). The JAX package stays beside it as
-the reference; this package imports its JAX-free host layers (``base``,
-``spec``, the native runtime and the codec models' host helpers) and never
-JAX.
+the reference. This package imports nothing of it: it keeps its own copies
+of the host layers it needs (``base``, ``spec``, the native runtime's C++
+source and ctypes wrapper, the codec models' host helpers), and never
+imports JAX.
 
     from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
     outs = TorchDecoder("cuda").decode_many(containers)

@@ -2,10 +2,11 @@
 
 Counterpart of the serving path of ``lzfse_rust_tpu.models.decoder``
 (``TpuDecoder.decode_many`` -> ``_walk_front``/``_walk_back``). The host
-layers are the JAX package's own, reused as they are: the native container
-walk, table build, payload gather and flatten/rebuild, and the spec layer
-for exact errors. What runs on the device is the two FSE stream-decode
-kernels of ``ops/cuda_decode.py``.
+layers are the port's own copies of the JAX package's (``base``, ``spec``,
+``runtime/native.py`` and the C++ runtime, and the container-parse helpers
+below): the native container walk, table build, payload gather and
+flatten/rebuild, and the spec layer for exact errors. What runs on the
+device is the two FSE stream-decode kernels of ``ops/cuda_decode.py``.
 
 Per call:
 
@@ -17,9 +18,9 @@ Per call:
    one staging buffer (pinned on a CUDA device);
 3. upload: one ``non_blocking`` copy of that buffer; the kernels read each
    block's payload out of it by word offset and length;
-4. device: the literal and L/M/D kernels write dense outputs at
-   host-computed offsets; the outputs and final states come back in one
-   pinned buffer;
+4. device: the literal and L/M/D kernels, on two CUDA streams joined
+   before the download, write dense outputs at host-computed offsets; the
+   outputs and final states come back in one pinned buffer;
 5. the host checks each stream's final states and position, then
    ``native.flatten_rebuild`` writes every container's bytes. A failed
    check or rebuild status sends the container to the spec layer and
@@ -31,19 +32,158 @@ tests. A CUDA device without a card raises: there is no silent CPU path.
 
 from __future__ import annotations
 
+import ctypes as _ct
 import time
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
-from lzfse_rust_tpu.base import constants as C
-from lzfse_rust_tpu.models.decoder import (_ALIGN, _bytes_addr, _new_bytes,
-                                           _parse_container, _round_up)
-from lzfse_rust_tpu.spec import container as spec_container
-
+from ..base import constants as C
+from ..base.errors import BadBlock, DecodeError, PayloadOverflow, PayloadUnderflow
 from ..ops import cuda_decode as K
 from ..runtime.build import native_runtime
+from ..spec import container as spec_container
+from ..spec import fse as F
+from ..spec import vn as V
+from ..spec import weights as W
+
+# --- host helpers, copied from lzfse_rust_tpu/models/decoder.py ------------
+
+
+@dataclass
+class _FseBlockDesc:
+    container: int
+    order: int  # position among the container's blocks
+    block: F.FseBlock
+    weights: np.ndarray
+    lit_payload: bytes  # includes leading 8 borrowed/pad bytes
+    lmd_payload: bytes  # includes its own leading 8 pad bytes
+
+
+@dataclass
+class _ParsedContainer:
+    # per-block entries in stream order: ("fse", fse_index) | rows/literals
+    parts: list = field(default_factory=list)
+    n_raw: int = 0
+
+
+_NATIVE_W = None
+
+
+def _native_mod():
+    """The native runtime module, or None when the .so is absent."""
+    global _NATIVE_W
+    if _NATIVE_W is None:
+        try:
+            from ..runtime import native
+            _NATIVE_W = native if native.available() else False
+        except Exception:
+            _NATIVE_W = False
+    return _NATIVE_W or None
+
+
+def _weights_v2(payload: bytes) -> np.ndarray:
+    """V2 weight Huffman decode — native engine when built (the Python
+    nibble loop costs ~0.3ms/block and dominated host parse)."""
+    n = _native_mod()
+    if n is not None:
+        return n.load_weights_v2(payload)
+    return W.load_v2(payload)
+
+
+def _parse_container(src: bytes, ci: int, fse_blocks: list) -> _ParsedContainer:
+    """Walk one container, collecting FSE payloads and host-parsed rows."""
+    out = _ParsedContainer()
+    pos = 0
+    n = len(src)
+    while True:
+        if n - pos < 4:
+            raise PayloadUnderflow("container truncated")
+        magic = int.from_bytes(src[pos:pos + 4], "little")
+        if magic == C.MAGIC_EOS:
+            pos += 4
+            break
+        if magic in (C.MAGIC_VX2, C.MAGIC_VX1):
+            if magic == C.MAGIC_VX2:
+                block, nw = F.load_v2_header(
+                    spec_container._take(src, pos, C.V2_HEADER_SIZE))
+                weights = _weights_v2(
+                    spec_container._take(src, pos + C.V2_HEADER_SIZE, nw))
+                payload_start = pos + C.V2_HEADER_SIZE + nw
+            else:
+                block = F.load_v1_header(
+                    spec_container._take(src, pos, C.V1_HEADER_SIZE))
+                weights = W.load_v1(spec_container._take(
+                    src, pos + C.V1_HEADER_SIZE, C.V1_WEIGHT_PAYLOAD_BYTES))
+                payload_start = pos + C.V1_HEADER_SIZE + C.V1_WEIGHT_PAYLOAD_BYTES
+            lit_payload = spec_container._take(
+                src, payload_start - 8, block.literal.n_payload_bytes + 8)
+            lmd_start = payload_start + block.literal.n_payload_bytes
+            lmd_payload = spec_container._take(
+                src, lmd_start, block.lmd.n_payload_bytes)
+            # BitReader init padding checks (bit_reader.rs:25-27).
+            for payload, bits in ((lit_payload, block.literal.bits),
+                                  (lmd_payload, block.lmd.bits)):
+                if bits and int.from_bytes(payload[-8:], "little") >> (64 - bits):
+                    raise DecodeError("BadBitStream")
+            out.parts.append(("fse", len(fse_blocks)))
+            fse_blocks.append(_FseBlockDesc(
+                ci, len(out.parts) - 1, block, weights, lit_payload,
+                lmd_payload))
+            out.n_raw += block.n_raw_bytes
+            pos = lmd_start + block.lmd.n_payload_bytes
+        elif magic == C.MAGIC_VXN:
+            header = spec_container._take(src, pos, C.VN_HEADER_SIZE)
+            n_raw_b = int.from_bytes(header[4:8], "little")
+            n_pay = int.from_bytes(header[8:12], "little")
+            payload = spec_container._take(src, pos + C.VN_HEADER_SIZE, n_pay)
+            rows, lits = V.parse_vn_rows(payload, n_raw_b, n_pay)
+            out.parts.append(("rows", rows, lits))
+            out.n_raw += n_raw_b
+            pos += C.VN_HEADER_SIZE + n_pay
+        elif magic == C.MAGIC_RAW:
+            header = spec_container._take(src, pos, C.RAW_HEADER_SIZE)
+            n_raw_b = int.from_bytes(header[4:8], "little")
+            data = spec_container._take(src, pos + C.RAW_HEADER_SIZE, n_raw_b)
+            rows = np.array([[n_raw_b, 0, 0]], dtype=np.int32)
+            out.parts.append(("rows", rows, data))
+            out.n_raw += n_raw_b
+            pos += C.RAW_HEADER_SIZE + n_raw_b
+        else:
+            raise BadBlock(magic)
+    if n - pos != 0:
+        raise PayloadOverflow("trailing bytes after EOS")
+    return out
+
+
+def _round_up(x: int, m: int) -> int:
+    return (x + m - 1) // m * m
+
+
+_ALIGN = 512  # payload alignment in the flat upload cat (128 int32 words)
+
+# Uninitialized-bytes allocation + buffer address (CPython C API via
+# ctypes): lets the native rebuild fill final `bytes` results in place.
+_PyBytes_New = _ct.pythonapi.PyBytes_FromStringAndSize
+_PyBytes_New.restype = _ct.py_object
+_PyBytes_New.argtypes = [_ct.c_char_p, _ct.c_ssize_t]
+_PyBytes_AsString = _ct.pythonapi.PyBytes_AsString
+_PyBytes_AsString.restype = _ct.c_void_p
+_PyBytes_AsString.argtypes = [_ct.py_object]
+
+
+def _new_bytes(n: int) -> bytes:
+    """A fresh UNINITIALIZED bytes object of length n (contents garbage
+    until the native rebuild fills it)."""
+    return _PyBytes_New(None, n)
+
+
+def _bytes_addr(b: bytes) -> int:
+    return _PyBytes_AsString(b) or 0
+
+
+# --- the port's decoder ------------------------------------------------------
 
 # per-block int32 parameters, one row of B each, in the staging buffer
 _ROWS = ("lit_pos", "lmd_pos", "lit_num", "lmd_num", "lit_off", "lmd_off",
@@ -121,6 +261,7 @@ class TorchDecoder:
         self._stage: torch.Tensor | None = None   # host staging, int32
         self._stage_free = None   # event: the last upload from _stage is done
         self._down: torch.Tensor | None = None    # host download, int32
+        self._side = None   # CUDA stream of the L/M/D kernel
 
     # -- host buffers ----------------------------------------------------
 
@@ -262,13 +403,28 @@ class TorchDecoder:
         arrays (literal bytes, lm, d, lit states, lit pos, lmd states,
         lmd pos)."""
         cuda = self.device.type == "cuda"
-        if cuda:
+        if not cuda:
+            outs = (*K.decode_literals(**batch.lit),
+                    *K.decode_lmds(**batch.lmd))
+        else:
+            # neither kernel reads the other's output: the L/M/D kernel runs
+            # on a second stream, joined back before the download, so the
+            # kernels take about the longer of the two, not their sum
+            main = torch.cuda.current_stream(self.device)
+            if self._side is None:
+                self._side = torch.cuda.Stream(self.device)
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
-        outs = (*K.decode_literals(**batch.lit), *K.decode_lmds(**batch.lmd))
+            ev[0].record(main)
+            self._side.wait_stream(main)
+            lit_outs = K.decode_literals(**batch.lit)
+            with torch.cuda.stream(self._side):
+                lmd_outs = K.decode_lmds(**batch.lmd)
+            main.wait_stream(self._side)
+            for t in lmd_outs:
+                t.record_stream(main)
+            outs = (*lit_outs, *lmd_outs)
+            ev[1].record(main)
         # lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp
-        if cuda:
-            ev[1].record()
         self._down, pieces = download(outs, self._down, cuda)
         if cuda:
             ev[2].record()

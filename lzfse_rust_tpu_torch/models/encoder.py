@@ -3,9 +3,10 @@ runs on a CUDA device.
 
 Counterpart of ``lzfse_rust_tpu.models.encoder.TpuEncoder`` with
 ``frontend="native"`` and device emission, its serving default. The host
-layers are the JAX package's own, reused as they are: the native frontend,
-staging and packing (``runtime/native.py``), the block parse, and the spec
-layer's block headers and weight payloads. What runs on the device is the
+layers are the port's own copies of the JAX package's: the native frontend,
+staging and packing (``runtime/native.py``), the block parse
+(``_parse_blocks``), and the spec layer's block headers and weight
+payloads. What runs on the device is the
 E-table build (``ops/fse_encode.py``) and the two encode kernels of
 ``ops/cuda_encode.py``.
 
@@ -47,14 +48,12 @@ import os
 import numpy as np
 import torch
 
-from lzfse_rust_tpu.base import constants as C
-from lzfse_rust_tpu.base.errors import LzfseError
-from lzfse_rust_tpu.models.encoder import TpuEncoder
-from lzfse_rust_tpu.spec import fse as F
-
+from ..base import constants as C
+from ..base.errors import LzfseError
 from ..ops import cuda_encode as K
 from ..ops.fse_encode import build_encode_tables
 from ..runtime.build import native_runtime
+from ..spec import fse as F
 from .decoder import _Clock, _round_up, download
 
 # staged row width: LMDS_PER_BLOCK rounded up to 128, the width
@@ -79,6 +78,29 @@ _POOL = (("weights", (C.N_WEIGHTS,), torch.int64),
          ("order_m", (), torch.int32))
 _UPLOAD = ("weights", "litw", "lit_num", "lmv", "dv", "lmd_num", "order_l",
            "order_m")
+
+
+def _parse_blocks(blob: bytes):
+    """Raw block contents from a select_blocks/frontend_blocks blob:
+    [(lits u8[], rows3 int32[n,3], n_match_bytes), ...].
+
+    Copied from ``TpuEncoder._parse_blocks``
+    (``lzfse_rust_tpu/models/encoder.py``)."""
+    blocks = []
+    rec = np.dtype([("l", "<u2"), ("m", "<u2"), ("d", "<u4")])
+    off = 0
+    n = len(blob)
+    while off < n:
+        n_lit, n_lmd, n_mb = np.frombuffer(blob, np.uint32, 3, off)
+        off += 12
+        lits = np.frombuffer(blob, np.uint8, int(n_lit), off)
+        off += int(n_lit)
+        raw = np.frombuffer(blob, rec, int(n_lmd), off)
+        off += 8 * int(n_lmd)
+        rows3 = np.stack([raw["l"], raw["m"], raw["d"]],
+                         axis=1).astype(np.int32)
+        blocks.append((lits, rows3, int(n_mb)))
+    return blocks
 
 
 def _map(fn, items) -> list:
@@ -294,7 +316,7 @@ class TorchEncoder:
         device one block per slot. Byte-identical to ``native.encode_bytes``."""
         if len(src) <= C.VN_CUTOFF:
             return self._native.encode_bytes(src)
-        blocks = TpuEncoder._parse_blocks(self._native.frontend_blocks(src))
+        blocks = _parse_blocks(self._native.frontend_blocks(src))
         body = b"".join(self._emit_best(blocks))
         self.last_emission = "device"
         return body + EOS

@@ -25,6 +25,9 @@ plain version. ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import pathlib
+import re
+
 import numpy as np
 import torch
 
@@ -32,6 +35,21 @@ from ..runtime import cuda_lib
 
 # kernel launches per wrapper, for checks that a run went through them
 launches = {"decode_literals": 0, "decode_lmds": 0}
+
+SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fse_decode.cu"
+# the source line that sets both kernels' streams per CUDA block
+STREAMS_LINE = re.compile(r"^constexpr int kStreams = (\d+);$", re.M)
+
+
+def streams_per_block(source: str | None = None) -> int:
+    """Streams per CUDA block of both decode kernels, as ``fse_decode.cu``
+    (or the given source text) sets it; needs no build."""
+    text = SOURCE.read_text() if source is None else source
+    found = STREAMS_LINE.findall(text)
+    if len(found) != 1:
+        raise RuntimeError(f"{SOURCE.name}: expected one kStreams line, "
+                           f"found {len(found)}")
+    return int(found[0])
 
 
 def reset_launches() -> None:

@@ -34,8 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from lzfse_rust_tpu.base import constants as C
-
+from ..base import constants as C
 from ..runtime import cuda_lib
 from .cuda_decode import _pointers, _to_i32, _wrap32
 

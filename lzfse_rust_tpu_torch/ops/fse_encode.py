@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import torch
 
-from lzfse_rust_tpu.base import constants as C
+from ..base import constants as C
 
 # (first column, end column, states) of the L, M, D and U classes in a
 # (B, 360) weights row

@@ -8,13 +8,13 @@ of its sources, flags and target changes:
   ``lzfse_rust_tpu_torch/csrc/*.cu``, compiled by ``nvcc`` for ``sm_90a``
   (one process per source, all started together, then one link) with a
   plain C interface and loaded with ``ctypes`` (``cuda_lib.py``).
-* ``build/libtpulzfse.so`` -- the native host runtime, compiled from
-  ``lzfse_rust_tpu/runtime/src/tpulzfse.cpp`` with the flags of
-  ``lzfse_rust_tpu/runtime/build.sh`` and installed into
-  ``lzfse_rust_tpu.runtime.native`` in place of the tracked library. The
-  tracked ``.so`` was built with ``-march=native`` on another host and may
-  hold instructions this host lacks, so the port always uses its own build
-  (the tracked file is never overwritten).
+* ``build/libtpulzfse.so`` -- the native host runtime, compiled from the
+  port's own copy of its source, ``runtime/src/tpulzfse.cpp`` (the JAX
+  package's, line for line, comments aside), with the flags of that package's
+  ``runtime/build.sh``, and loaded into the port's own ``runtime/native.py``
+  (a copy of the JAX package's ctypes wrapper). It is built on the host
+  that runs it, since ``-march=native`` code may hold instructions another
+  host lacks; no prebuilt library is ever loaded.
 
 A failed build raises ``BuildError`` carrying the compiler's stderr.
 """
@@ -34,7 +34,7 @@ PKG = pathlib.Path(__file__).resolve().parents[1]
 ROOT = PKG.parent
 BUILD_DIR = ROOT / "build"
 CSRC = PKG / "csrc"
-NATIVE_SRC = ROOT / "lzfse_rust_tpu" / "runtime" / "src" / "tpulzfse.cpp"
+NATIVE_SRC = PKG / "runtime" / "src" / "tpulzfse.cpp"
 
 # each source compiles alone (``-c``), all at once; one link joins them:
 # 9.13 s against 12.01 s for one nvcc of all sources (same flags, mean of
@@ -42,7 +42,7 @@ NATIVE_SRC = ROOT / "lzfse_rust_tpu" / "runtime" / "src" / "tpulzfse.cpp"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC")
 NVCC_LINK = ("-shared", "-Xcompiler", "-fPIC")
-# lzfse_rust_tpu/runtime/build.sh, release build
+# the JAX package's runtime/build.sh, release build
 NATIVE_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
                 "-pthread")
 NATIVE_LINK = ("-shared", "-pthread")
@@ -164,10 +164,10 @@ def build_native() -> pathlib.Path:
 
 
 def native_runtime():
-    """The ``lzfse_rust_tpu.runtime.native`` module, running on the
-    library built here. Builds and installs it on first call; raises
-    ``BuildError`` when it cannot be built or loaded."""
-    from lzfse_rust_tpu.runtime import native
+    """The port's ``runtime.native`` module, running on the library built
+    here. Builds and installs it on first call; raises ``BuildError`` when
+    it cannot be built or loaded."""
+    from . import native
     so = build_native()
     if native._LIB is None or getattr(native._LIB, "_name", None) != str(so):
         try:

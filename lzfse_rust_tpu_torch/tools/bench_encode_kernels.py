@@ -18,8 +18,7 @@ from __future__ import annotations
 import json
 import sys
 
-from lzfse_rust_tpu.base import constants as C
-
+from ..base import constants as C
 from ..ops import cuda_encode as KE
 from ..ops.fse_encode import build_encode_tables
 from ..utils import corpus as CP

@@ -1,12 +1,15 @@
-"""Time both decode kernels at 32, 64, 128 and 256 threads per CUDA block.
+"""Time both decode kernels at 4, 8, 16 and 32 streams per CUDA block.
 
     python3 -m lzfse_rust_tpu_torch.tools.block_size_probe
 
 Needs an NVIDIA GPU. It builds one variant of ``csrc/fse_decode.cu`` per
-block size (into ``build/probe<T>/``), runs each on the kernel inputs of
-the seeded serving batch that ``chip_smoke.py`` decodes, checks its
-outputs bit for bit against the shipped build, and prints CUDA-event
-times in two rounds of opposite order. Exits 1 if a variant disagrees.
+streams-per-block count (``kStreams``, the kernels' one tuning constant;
+into ``build/probe<S>/``), runs each on the kernel inputs of the seeded
+serving batch that ``chip_smoke.py`` decodes, checks its outputs bit for
+bit against the shipped build, and prints CUDA-event times in two rounds of
+opposite order: each kernel alone, and ``kernels_ms`` of a whole
+``decode_many`` (both kernels side by side on two CUDA streams; the median
+of three calls). Exits 1 if a variant disagrees.
 """
 
 from __future__ import annotations
@@ -21,37 +24,49 @@ from ..utils import corpus as CP
 from ..utils.timing import cuda_ms
 from .common import require_card
 
-SIZES = (32, 64, 128, 256)
-SHIPPED = "constexpr int kThreads = 128;"
+SIZES = (4, 8, 16, 32)
 
 
-def variant(threads: int):
-    """The kernel library built with ``threads`` threads per CUDA block."""
-    src = (B.CSRC / "fse_decode.cu").read_text()
-    if SHIPPED not in src:
-        raise RuntimeError(f"{SHIPPED!r} not found in fse_decode.cu")
-    d = B.BUILD_DIR / f"probe{threads}"
+def variant_source(src: str, streams: int) -> str:
+    """``fse_decode.cu`` with ``streams`` streams per CUDA block."""
+    K.streams_per_block(src)   # exactly one line to rewrite
+    return K.STREAMS_LINE.sub(f"constexpr int kStreams = {streams};", src)
+
+
+def library(name: str, source: str):
+    """The kernel library built with ``source`` in place of
+    ``fse_decode.cu`` (into ``build/<name>/``), loaded."""
+    d = B.BUILD_DIR / name
     d.mkdir(parents=True, exist_ok=True)
     cu = d / "fse_decode.cu"
-    cu.write_text(src.replace(SHIPPED, f"constexpr int kThreads = {threads};"))
+    cu.write_text(source)
     # the other sources as shipped: the library must hold every entry point
     rest = [s for s in sorted(B.CSRC.glob("*.cu")) if s.name != cu.name]
     return cuda_lib.load(B.kernel_library(d / "lib.so", [cu, *rest]))
 
 
+def variant(streams: int):
+    """The kernel library built with ``streams`` streams per CUDA block."""
+    return library(f"probe{streams}",
+                   variant_source(K.SOURCE.read_text(), streams))
+
+
 def main(argv=None) -> int:
     from .. import TorchDecoder
     require_card("block_size_probe")
-    libs = {t: variant(t) for t in SIZES}
+    libs = {s: variant(s) for s in SIZES}
     pairs = CP.serving_batch(seed=0)
-    lit, lmd = TorchDecoder("cuda").kernel_args([c for _, c in pairs])
-    print(f"{lit['tables'].shape[0]} streams", flush=True)
+    sources = [c for _, c in pairs]
+    dec = TorchDecoder("cuda")
+    lit, lmd = dec.kernel_args(sources)
+    print(f"{lit['tables'].shape[0]} streams, shipped "
+          f"{K.streams_per_block()} per CUDA block", flush=True)
     want = (K.decode_literals(**lit), K.decode_lmds(**lmd))   # shipped build
     torch.cuda.synchronize()
     ok = True
     for rnd, order in enumerate((SIZES, SIZES[::-1])):
-        for t in order:
-            cuda_lib._LIB = libs[t]
+        for s in order:
+            cuda_lib._LIB = libs[s]
             got = (K.decode_literals(**lit), K.decode_lmds(**lmd))
             torch.cuda.synchronize()
             same = all(torch.equal(g, w) for gs, ws in zip(got, want)
@@ -60,8 +75,14 @@ def main(argv=None) -> int:
             lit_ms = cuda_ms(lambda: K.decode_literals(**lit), reps=10,
                              warmup=2)
             lmd_ms = cuda_ms(lambda: K.decode_lmds(**lmd), reps=10, warmup=2)
-            print(f"round {rnd} threads/block {t}: literal {lit_ms:.4f} ms, "
-                  f"lmd {lmd_ms:.4f} ms, same={same}", flush=True)
+            both = []
+            for _ in range(4):   # the first call warms up
+                stats: dict = {}
+                dec.decode_many(sources, stats)
+                both.append(stats["detail_device"]["kernels_ms"])
+            print(f"round {rnd} streams/block {s}: literal {lit_ms:.4f} ms, "
+                  f"lmd {lmd_ms:.4f} ms, decode_many kernels_ms "
+                  f"{sorted(both[1:])[1]:.4f}, same={same}", flush=True)
     cuda_lib._LIB = None
     return 0 if ok else 1
 

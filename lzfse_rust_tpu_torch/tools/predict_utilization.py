@@ -6,16 +6,18 @@ work is wasted on threads that finished early, against the batch size.
 Port of the JAX package's ``tools/predict_utilization.py``, for this
 card's kernels. Each kernel runs one thread per stream (FSE block or
 staged slot); the streams are taken longest first (``cuda_decode`` and
-``cuda_encode`` slot order), so each warp holds 32 streams of similar
-length, and a warp costs its longest stream's step count. The wasted
-share is 1 - (steps of all streams) / (32 x sum over warps of the longest
-step count). Step counts are the serving batch's, from the kernels'
+``cuda_encode`` slot order), so each warp holds up to 32 streams of
+similar length (the decode kernels' warp holds the streams of one CUDA
+block), and a warp costs its longest stream's step count. The wasted
+share is 1 - (steps of all streams) / (streams per warp x sum over warps
+of the longest step count). Step counts are the serving batch's, from the kernels'
 arguments as ``TorchDecoder`` and ``TorchEncoder`` build them. The batch is
 scaled from 1/8 to 4 times the serving batch (the first blocks of the
 batch, or replicas); the JAX tool's scale was the corpus replica count,
 and the serving batch stands for 48 replicas. Also printed: CUDA blocks
-per kernel (decode 128 threads per block, encode 32) against the card's
-132 SMs. Pure shape math; it runs on the host.
+per kernel (decode: ``kStreams`` streams per block, read from
+``csrc/fse_decode.cu``; encode 32) against the card's 132 SMs. Pure shape
+math; it runs on the host.
 """
 
 from __future__ import annotations
@@ -24,12 +26,11 @@ import sys
 
 import numpy as np
 
+from ..ops import cuda_decode as KD
 from .common import require_card, serving_pairs
 
 WARP = 32
 SMS = 132
-THREADS = {"decode literals": 128, "decode lmds": 128,
-           "encode literals": 32, "encode lmds": 32}
 SCALES = (0.125, 0.25, 0.5, 1, 2, 4)
 
 
@@ -47,13 +48,19 @@ def warp_waste(steps, warp: int = WARP) -> dict:
             "wasted_share": 1 - useful / issued if issued else 0.0}
 
 
+def streams_per_block() -> dict:
+    """Streams per CUDA block of each kernel."""
+    dec = KD.streams_per_block()
+    return {"decode literals": dec, "decode lmds": dec,
+            "encode literals": WARP, "encode lmds": WARP}
+
+
 def step_counts(pairs) -> dict:
     """Per-stream step counts of each kernel for a batch of ``(raw,
     container)`` pairs, from the kernels' own arguments as the decoder and
     the encoder build them on the host (period-split alternatives
     included)."""
     from .. import TorchDecoder, TorchEncoder
-    from ..ops import cuda_decode as KD
     from ..ops import cuda_encode as KE
     lit, lmd = TorchDecoder("cpu").kernel_args([c for _, c in pairs])
     e_lit, e_lmd = TorchEncoder("cpu").kernel_args([r for r, _ in pairs])
@@ -76,12 +83,14 @@ def scaled(steps, scale: float):
 def main(argv=None) -> int:
     require_card("predict_utilization")
     counts = step_counts(serving_pairs())
+    per_block = streams_per_block()
     print(f"{'scale':>6} {'kernel':>16} {'streams':>8} {'CUDA blocks':>11} "
           f"{'SM share':>8} {'wasted share':>12}")
     for scale in SCALES:
         for name, steps in counts.items():
-            w = warp_waste(scaled(steps, scale))
-            blocks = -(-w["streams"] // THREADS[name])
+            w = warp_waste(scaled(steps, scale),
+                           min(WARP, per_block[name]))
+            blocks = -(-w["streams"] // per_block[name])
             print(f"{scale:>6} {name:>16} {w['streams']:>8} {blocks:>11} "
                   f"{min(1.0, blocks / SMS):>8.3f} "
                   f"{w['wasted_share']:>12.4f}", flush=True)

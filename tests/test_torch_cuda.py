@@ -43,6 +43,100 @@ def test_cuda_kernels_equal_plain_versions():
             assert torch.equal(g, w)
 
 
+def _decode_cases(kind, args):
+    """Each decode kernel against its plain version on the card."""
+    fn, ref = ((K.decode_literals, K.decode_literals_ref) if kind == "literals"
+               else (K.decode_lmds, K.decode_lmds_ref))
+    args = {k: v.cuda() if torch.is_tensor(v) else v for k, v in args.items()}
+    before = K.launches[fn.__name__]
+    got = fn(**args)
+    torch.cuda.synchronize()
+    assert K.launches[fn.__name__] == before + 1
+    for g, w in zip(got, ref(**args)):
+        assert torch.equal(g, w), kind
+
+
+def _synthetic(kind, rng, lens, pos, states, num, tot=None, tables=None):
+    """Decode kernel arguments for len(lens) streams of random payload
+    words (each stream's words at its own offset, a gap between them)."""
+    i32 = lambda x: torch.from_numpy(np.asarray(x, np.int64)  # noqa: E731
+                                     .astype(np.int32))
+    B = len(lens)
+    off = np.concatenate(([3], 3 + np.cumsum(np.asarray(lens) + 5)[:-1]))
+    words = rng.integers(-2**31, 2**31, int(off[-1] + lens[-1] + 7))
+    counts = K.literal_counts(num) if kind == "literals" else np.asarray(num)
+    out_off, n_out = K.out_offsets(counts)
+    if tables is None:
+        tables = rng.integers(-2**31, 2**31, (B, 384))
+    args = dict(tables=i32(tables), words=i32(words), word_off=i32(off),
+                word_len=i32(lens), states=i32(states), pos=i32(pos),
+                num=i32(num), out_off=i32(out_off), n_out=n_out)
+    if kind == "literals":
+        args["tot"] = i32(tot)
+    return args
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["literals", "lmds"])
+def test_cuda_decode_more_streams_than_a_block(kind):
+    """More streams than one CUDA block holds, and a count that is not a
+    multiple of it: real blocks, repeated."""
+    blocks = blocks_of(corpus.small_batch(seed=13, n_fse=6, lo=3_000,
+                                          hi=9_000))
+    per_block = K.streams_per_block()
+    want = 3 * per_block + 5
+    args, _ = port_args((blocks * (want // len(blocks) + 1))[:want], kind)
+    assert args["tables"].shape[0] % per_block != 0
+    _decode_cases(kind, args)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["literals", "lmds"])
+def test_cuda_decode_edge_streams(kind):
+    """Garbage tables (any k, delta, slow entries), streams of 0 steps and
+    of 0 words, reads below bit 0, negative and far positions; literal
+    states latched, at tot, above 1,023 and negative."""
+    rng = np.random.default_rng(17)
+    B = max(2 * K.streams_per_block(), 16) + 3   # 12 hand-set streams
+    lens = rng.integers(0, 40, B)
+    lens[:3] = 0
+    num = rng.integers(0, 200, B)
+    num[3:6] = 0
+    pos = lens * 32 - rng.integers(0, 64, B)
+    pos[6:9] = (5, 40, -3)
+    pos[9] = 2**31 - 1
+    lanes = 4 if kind == "literals" else 3
+    states = rng.integers(-2**31, 2**31, (B, lanes))
+    states[::2] = rng.integers(0, 1024, (len(states[::2]), lanes))
+    tot = rng.integers(0, 1100, B)
+    tot[:4] = (0, 1024, 1100, 700)
+    if kind == "literals":
+        states[10] = (tot[10], 1023, 1024, -1)
+        states[11] = (-2**31, 2**31 - 1, 5000, tot[11] + 1)
+    _decode_cases(kind, _synthetic(kind, rng, lens, pos, states, num, tot))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["literals", "lmds"])
+def test_cuda_decode_payload_ends_at_a_refill_chunk(kind):
+    """Payloads that end exactly at a refill chunk (multiples of 16 and 32
+    words) and one word past it, read from their top bit all the way down and below bit 0,
+    through the real tables of corpus blocks (states stay in range)."""
+    rng = np.random.default_rng(19)
+    blocks = blocks_of(corpus.small_batch(seed=23, n_fse=4, lo=3_000,
+                                          hi=9_000))
+    lens = np.array([16, 17, 32, 33, 48, 49, 64, 65, 128, 129, 1, 15])
+    B = len(lens)
+    real, _ = port_args((blocks * B)[:B], kind)
+    tables = real["tables"].numpy()
+    states = real["states"].numpy()
+    # enough steps to read every word, then keep going below bit 0
+    num = lens * 32 // (4 if kind == "literals" else 3) * 4 + 64
+    _decode_cases(kind, _synthetic(
+        kind, rng, lens, lens * 32, states, num,
+        real["tot"].numpy() if kind == "literals" else None, tables))
+
+
 @pytest.mark.cuda
 def test_cuda_decoder_end_to_end():
     """On a card: the decoder runs both kernels and returns the raw bytes."""

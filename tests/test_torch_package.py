@@ -1,6 +1,6 @@
-"""Package-level properties of the PyTorch port: it never imports JAX, its
-kernel modules import without a CUDA toolchain, builds are cached and fail
-loudly, and a CUDA request without a card raises."""
+"""Package-level properties of the PyTorch port: it never imports JAX nor
+the JAX package, its kernel modules import without a CUDA toolchain, builds
+are cached and fail loudly, and a CUDA request without a card raises."""
 
 import os
 import pathlib
@@ -51,13 +51,16 @@ def test_import_leaves_jax_out():
 
 
 def test_chip_smoke_reaches_jax_package_only_through_port():
-    """chip_smoke.py imports no JAX package module of its own; only the
-    port's reuse of the host layers brings ``lzfse_rust_tpu`` in."""
+    """chip_smoke.py and the port it imports load no module named
+    ``lzfse_rust_tpu`` or ``lzfse_rust_tpu.*``: the port keeps its own
+    copies of the host layers, so nothing reaches the JAX package."""
     text = (ROOT / "chip_smoke.py").read_text()
     assert not re.search(r"^\s*(import|from)\s+lzfse_rust_tpu\b", text, re.M)
     r = _python(
         "import sys\n"
         "import chip_smoke\n"
+        "import lzfse_rust_tpu_torch\n"
+        "from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder\n"
         "bad = sorted(m for m in sys.modules\n"
         "             if m.split('.')[0] in ('jax', 'lzfse_rust_tpu'))\n"
         "assert not bad, bad\n"
@@ -154,15 +157,46 @@ def test_failed_build_carries_compiler_stderr(tmp_path, monkeypatch):
 
 
 def test_native_build_is_cached_and_installed():
-    from lzfse_rust_tpu.runtime import native
+    """The port's own ``runtime.native`` is returned, running on the
+    library built from the port's own copy of the C++ source."""
+    from lzfse_rust_tpu_torch.runtime import native
     first = build.build_native()
     stamp = first.stat().st_mtime_ns
     assert build.build_native() == first
     assert first.stat().st_mtime_ns == stamp
     mod = build.native_runtime()
-    assert mod is native and native._LIB._name == str(first)
+    assert mod is native and mod.__name__ == "lzfse_rust_tpu_torch.runtime.native"
+    assert native._LIB._name == str(first)
+    assert build.NATIVE_SRC.is_relative_to(build.PKG)
     data = b"the port rebuilds the native runtime " * 50
     assert native.decode_bytes(native.encode_bytes(data)) == data
+
+
+def test_chip_smoke_bound_counts_this_batch():
+    """The kernels line's bound: the larger of bytes over 3.35 TB/s and
+    operations over 67 T/s, with each input read once and each output
+    written once, counted from the batch's own arguments."""
+    import chip_smoke
+    assert chip_smoke.bound(3_350_000_000, 0) == (1.0, "bytes")
+    assert chip_smoke.bound(0, 67_000_000_000) == (1.0, "operations")
+    assert chip_smoke.bound(10, 10**12)[1] == "operations"
+    from lzfse_rust_tpu_torch import TorchDecoder
+    from lzfse_rust_tpu_torch.utils import corpus
+    pairs = corpus.small_batch(seed=5, n_fse=3, lo=6_000, hi=12_000)
+    lit, lmd = TorchDecoder("cpu").kernel_args([c for _, c in pairs])
+    for name, fn, args in (("decode_literals", K.decode_literals, lit),
+                           ("decode_lmds", K.decode_lmds, lmd)):
+        outs = fn(**args)
+        n_bytes, n_ops = chip_smoke.codec_work(name, args, outs)
+        small = sum(v.numel() * 4 for k, v in args.items()
+                    if k != "words" and torch.is_tensor(v))
+        words = int(args["word_len"].sum()) * 4
+        assert n_bytes == small + words + sum(o.numel() * 4 for o in outs)
+        lanes = 1 if name == "decode_literals" else 3
+        assert n_ops == chip_smoke.OPS_PER_SYMBOL * lanes * int(args["num"].sum())
+        assert chip_smoke.longest_steps(name, args) == (
+            (int(args["num"].max()) + 3) // 4 if lanes == 1
+            else int(args["num"].max()))
 
 
 def test_out_offsets():

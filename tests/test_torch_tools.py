@@ -80,6 +80,57 @@ def test_warp_waste_counts_the_longest_stream_per_warp():
     assert PU.warp_waste([])["wasted_share"] == 0.0
 
 
+def test_decode_streams_per_block_is_read_from_the_source():
+    """The shape model and the block sweep read the decode kernels' one
+    tuning constant from ``fse_decode.cu``; the sweep rewrites that line
+    and nothing else."""
+    from lzfse_rust_tpu_torch.ops import cuda_decode as K
+    from lzfse_rust_tpu_torch.tools import block_size_probe as BSP
+    src = K.SOURCE.read_text()
+    shipped = K.streams_per_block()
+    assert 1 <= shipped <= 32
+    per_block = PU.streams_per_block()
+    assert per_block["decode literals"] == per_block["decode lmds"] == shipped
+    for streams in BSP.SIZES:
+        out = BSP.variant_source(src, streams)
+        assert K.streams_per_block(out) == streams
+        assert len(out.splitlines()) == len(src.splitlines())
+        diff = [a for a, b in zip(src.splitlines(), out.splitlines())
+                if a != b]
+        assert len(diff) == (0 if streams == shipped else 1)
+    with pytest.raises(RuntimeError, match="kStreams"):
+        K.streams_per_block(src.replace("constexpr int kStreams", "int k"))
+
+
+@pytest.mark.parametrize("name", ["no_stores", "no_refills"])
+def test_decode_step_probe_variants_take_out_their_part(name):
+    from lzfse_rust_tpu_torch.ops import cuda_decode as K
+    from lzfse_rust_tpu_torch.tools import decode_step_probe as DSP
+    src = K.SOURCE.read_text()
+    out = DSP.variant_source(src, name)
+    assert out != src and len(out) < len(src)
+    if name == "no_refills":
+        assert "st.ring.round(" not in out
+    else:
+        assert "store_round(d" not in out and "dlm[step]" not in out
+    with pytest.raises(RuntimeError, match=name):
+        DSP.variant_source(src.replace("st.ring.round", "st.ring.roundx")
+                           .replace("store_round(d", "store_roundx(d"), name)
+
+
+def test_decode_step_probe_keeps_only_the_longest_stream():
+    from lzfse_rust_tpu_torch.tools import decode_step_probe as DSP
+    pairs = CP.small_batch(seed=3, n_fse=3, lo=6_000, hi=12_000)
+    lit, lmd = TorchDecoder("cpu").kernel_args([c for _, c in pairs])
+    for name, args in (("literal", lit), ("lmd", lmd)):
+        one = DSP.longest_only(args)
+        assert one["num"][0] == args["num"].max() and not one["num"][1:].any()
+        assert args["num"][1:].any()   # the caller's arguments stay as they were
+        n = int(args["num"][0])
+        assert DSP.steps_of(name, one) == ((n + 3) // 4 if name == "literal"
+                                           else n)
+
+
 def test_scaled_takes_a_prefix_or_replicas():
     s = np.arange(16)
     assert PU.scaled(s, 0.25).tolist() == [0, 1, 2, 3]

@@ -7,9 +7,9 @@ use it."""
 import numpy as np
 import torch
 
-from lzfse_rust_tpu.base import constants as C
-from lzfse_rust_tpu.models.decoder import _parse_container
-from lzfse_rust_tpu.models.encoder import TpuEncoder
+from lzfse_rust_tpu_torch.base import constants as C
+from lzfse_rust_tpu_torch.models.decoder import _parse_container
+from lzfse_rust_tpu_torch.models.encoder import _parse_blocks
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 
@@ -17,7 +17,7 @@ LMD_OFF = (0, C.L_STATES, C.L_STATES + C.M_STATES)
 
 
 def blocks_of(pairs):
-    """Every FSE block of the containers, as the JAX decoder parses them."""
+    """Every FSE block of the containers, as the decoders parse them."""
     out: list = []
     for ci, (_, c) in enumerate(pairs):
         _parse_container(c, ci, out)
@@ -75,8 +75,7 @@ def encode_blocks(sources) -> list:
     nat = native_runtime()
     out = []
     for src in sources:
-        for lits, rows3, n_mb in TpuEncoder._parse_blocks(
-                nat.frontend_blocks(src)):
+        for lits, rows3, n_mb in _parse_blocks(nat.frontend_blocks(src)):
             w, _ = nat.block_weights(rows3, lits)
             out.append((lits, rows3, n_mb, w.astype(np.int64)))
     return out
