@@ -41,15 +41,22 @@ SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fse_decode.cu"
 STREAMS_LINE = re.compile(r"^constexpr int kStreams = (\d+);$", re.M)
 
 
+def source_constant(path: pathlib.Path, pattern: re.Pattern, name: str,
+                    source: str | None = None) -> int:
+    """The integer that the one line of ``path`` (or of the given source
+    text) matching ``pattern`` sets; raises unless exactly one matches."""
+    text = path.read_text() if source is None else source
+    found = pattern.findall(text)
+    if len(found) != 1:
+        raise RuntimeError(f"{path.name}: expected one {name} line, "
+                           f"found {len(found)}")
+    return int(found[0])
+
+
 def streams_per_block(source: str | None = None) -> int:
     """Streams per CUDA block of both decode kernels, as ``fse_decode.cu``
     (or the given source text) sets it; needs no build."""
-    text = SOURCE.read_text() if source is None else source
-    found = STREAMS_LINE.findall(text)
-    if len(found) != 1:
-        raise RuntimeError(f"{SOURCE.name}: expected one kStreams line, "
-                           f"found {len(found)}")
-    return int(found[0])
+    return source_constant(SOURCE, STREAMS_LINE, "kStreams", source)
 
 
 def reset_launches() -> None:

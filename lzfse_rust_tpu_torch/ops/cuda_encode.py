@@ -13,8 +13,8 @@ writes and ``native.pack_stage`` reads:
   or ``lm = l | m << 16`` and ``d`` (0 means a repeat);
 * ``num`` (B,): literal count (steps ``(num + 3) >> 2``) or row count
   (steps ``num``), steps capped at n_cols;
-* ``order`` (B,): a permutation of the slots, the order in which the
-  kernel's threads take them (longest first keeps a warp's threads on
+* ``order`` (B,): a permutation of the slots; each CUDA block takes
+  ``kSlots`` consecutive entries (longest first keeps a block's slots on
   similar step counts). Results do not depend on it.
 
 Outputs: ``glo`` and ``gmeta`` (B, n_cols), column i holding push group i
@@ -31,17 +31,37 @@ plain version. ``launches`` counts kernel launches.
 
 from __future__ import annotations
 
+import pathlib
+import re
+
 import numpy as np
 import torch
 
 from ..base import constants as C
 from ..runtime import cuda_lib
-from .cuda_decode import _pointers, _to_i32, _wrap32
+from .cuda_decode import _pointers, _to_i32, _wrap32, source_constant
 
 # kernel launches per wrapper, for checks that a run went through them
 launches = {"encode_literals": 0, "encode_lmds": 0}
 
 _M32 = 0xFFFFFFFF
+
+SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "fse_encode.cu"
+# the source lines that set both kernels' slots per CUDA block (the one
+# tuning constant) and steps per tile
+SLOTS_LINE = re.compile(r"^constexpr int kSlots = (\d+);$", re.M)
+TILE_LINE = re.compile(r"^constexpr int kTile = (\d+);", re.M)
+
+
+def slots_per_block(source: str | None = None) -> int:
+    """Slots per CUDA block of both encode kernels, as ``fse_encode.cu``
+    (or the given source text) sets it; needs no build."""
+    return source_constant(SOURCE, SLOTS_LINE, "kSlots", source)
+
+
+def tile_steps(source: str | None = None) -> int:
+    """Steps per tile of both encode kernels (``kTile``)."""
+    return source_constant(SOURCE, TILE_LINE, "kTile", source)
 
 
 def reset_launches() -> None:

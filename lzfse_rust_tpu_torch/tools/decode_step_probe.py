@@ -90,8 +90,8 @@ def main(argv=None) -> int:
         print(f"{name}: all streams {out['all_ms'][name]:.4f} ms; longest "
               f"stream alone {steps} steps in {ms:.4f} ms = "
               f"{ms * 1e6 / max(steps, 1):.1f} ns/step", flush=True)
-    libs = {v: library(f"step_{v}", variant_source(K.SOURCE.read_text(), v))
-            for v in VARIANTS}
+    libs = {v: library(f"step_{v}", {K.SOURCE.name: variant_source(
+        K.SOURCE.read_text(), v)}) for v in VARIANTS}
     shipped = cuda_lib.lib()
     try:
         for v, lib in libs.items():

@@ -7,17 +7,20 @@ Port of the JAX package's ``tools/predict_utilization.py``, for this
 card's kernels. Each kernel runs one thread per stream (FSE block or
 staged slot); the streams are taken longest first (``cuda_decode`` and
 ``cuda_encode`` slot order), so each warp holds up to 32 streams of
-similar length (the decode kernels' warp holds the streams of one CUDA
-block), and a warp costs its longest stream's step count. The wasted
-share is 1 - (steps of all streams) / (streams per warp x sum over warps
-of the longest step count). Step counts are the serving batch's, from the kernels'
-arguments as ``TorchDecoder`` and ``TorchEncoder`` build them. The batch is
+similar length, and a warp costs its longest stream's step count. A
+decode warp holds the streams of one CUDA block (``kStreams``); an encode
+CUDA block's ``kSlots`` slots run their chains side by side, so it costs
+its longest slot. The wasted share is 1 - (steps of all streams) /
+(streams per group x sum over groups of the longest step count). Step
+counts are the serving batch's, from the kernels' arguments as
+``TorchDecoder`` and ``TorchEncoder`` build them. The batch is
 scaled from 1/8 to 4 times the serving batch (the first blocks of the
 batch, or replicas); the JAX tool's scale was the corpus replica count,
 and the serving batch stands for 48 replicas. Also printed: CUDA blocks
 per kernel (decode: ``kStreams`` streams per block, read from
-``csrc/fse_decode.cu``; encode 32) against the card's 132 SMs. Pure shape
-math; it runs on the host.
+``csrc/fse_decode.cu``; encode: ``kSlots`` slots per block, read from
+``csrc/fse_encode.cu``) against the card's 132 SMs. Pure shape math; it
+runs on the host.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ import sys
 import numpy as np
 
 from ..ops import cuda_decode as KD
+from ..ops import cuda_encode as KE
 from .common import require_card, serving_pairs
 
 WARP = 32
@@ -49,10 +53,12 @@ def warp_waste(steps, warp: int = WARP) -> dict:
 
 
 def streams_per_block() -> dict:
-    """Streams per CUDA block of each kernel."""
+    """Streams (decode) or slots (encode) per CUDA block of each kernel,
+    read from the sources."""
     dec = KD.streams_per_block()
+    enc = KE.slots_per_block()
     return {"decode literals": dec, "decode lmds": dec,
-            "encode literals": WARP, "encode lmds": WARP}
+            "encode literals": enc, "encode lmds": enc}
 
 
 def step_counts(pairs) -> dict:
@@ -61,7 +67,6 @@ def step_counts(pairs) -> dict:
     the encoder build them on the host (period-split alternatives
     included)."""
     from .. import TorchDecoder, TorchEncoder
-    from ..ops import cuda_encode as KE
     lit, lmd = TorchDecoder("cpu").kernel_args([c for _, c in pairs])
     e_lit, e_lmd = TorchEncoder("cpu").kernel_args([r for r, _ in pairs])
     return {"decode literals": KD.literal_counts(lit["num"].numpy()),

@@ -182,6 +182,116 @@ def test_cuda_encode_kernels_equal_plain_versions():
             assert torch.equal(g, w), kind
 
 
+def _encode_synthetic(kind, rng, num, n_cols, offset=0):
+    """Encode kernel arguments (CUDA tensors) for len(num) slots: garbage E
+    tables (any t_k and t_w, so n reaches 0 and 25, totals pass 64 and
+    states wrap int32), except slot 0's all-zero table (n stays 0) and slot
+    1's all-0x7FFF one (n clamps at 25), and rows of any int32 (negative
+    and out-of-range lm and d). ``offset`` words before the rows shift
+    them off 16-byte alignment."""
+    B = len(num)
+    i32 = np.iinfo(np.int32)
+
+    def draw(*shape):
+        return rng.integers(i32.min, i32.max + 1, shape, dtype=np.int64)
+
+    def rows():
+        flat = torch.from_numpy(draw(B * n_cols + offset).astype(np.int32))
+        return flat.cuda()[offset:].view(B, n_cols)
+
+    widths = {"e_u": 256} if kind == "literals" else {"e_l": 20, "e_m": 20,
+                                                      "e_d": 64}
+    args = {}
+    for key, width in widths.items():
+        tab = draw(B, width)
+        tab[0] = 0
+        tab[1 % B] = 0x7FFF | (rng.integers(0, 1 << 16) << 15)
+        args[key] = torch.from_numpy(tab.astype(np.int32)).cuda()
+    for key in (("words",) if kind == "literals" else ("lm", "d")):
+        args[key] = rows()
+    args["num"] = torch.from_numpy(np.asarray(num, np.int64)
+                                   .astype(np.int32)).cuda()
+    return args
+
+
+def _encode_cases(kind, args, rng, totals=True):
+    """Each encode kernel equals its plain version on the defined columns
+    and the final states, under the longest-first order and two random
+    permutations."""
+    fn, ref = ((KE.encode_literals, KE.encode_literals_ref)
+               if kind == "literals" else (KE.encode_lmds, KE.encode_lmds_ref))
+    B, n_cols = args["num"].numel(), args["lm" if kind == "lmds"
+                                          else "words"].shape[1]
+    steps = KE.steps_of(kind, args["num"].cpu().numpy(), n_cols)
+    orders = [KE.slot_order(steps), rng.permutation(B), rng.permutation(B)]
+    base = {**args, "order": torch.from_numpy(orders[0]).cuda()}
+    want = KE.defined_columns(kind, ref(**base), args["num"])
+    if totals:   # the group total passes 64 somewhere
+        total = want[1] >> (8 if kind == "literals" else 22)
+        assert int(total.max()) >= 64
+    for order in orders:
+        call = {**args, "order": torch.from_numpy(
+            np.asarray(order, np.int32)).cuda()}
+        before = KE.launches[fn.__name__]
+        got = KE.defined_columns(kind, fn(**call), args["num"])
+        torch.cuda.synchronize()
+        assert KE.launches[fn.__name__] == before + 1
+        for g, w in zip(got, want):
+            assert torch.equal(g, w), kind
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["literals", "lmds"])
+@pytest.mark.parametrize("extra,offset", [(7, 0), (8, 0), (8, 1)],
+                         ids=["ragged", "aligned", "unaligned"])
+def test_cuda_encode_edge_rows(kind, extra, offset):
+    """Rows of 0 steps and num <= 0; step counts at a tile boundary and one
+    either side; literal num not a multiple of 4 and above 4 n_cols (the
+    clamp); n_cols not a multiple of 4, or rows off 16-byte alignment (the
+    scalar copies and stores); a slot count that is not a multiple of
+    kSlots."""
+    rng = np.random.default_rng(41)
+    T = KE.tile_steps()
+    n_cols = 2 * T + extra   # two tile boundaries inside the row
+    per = 4 if kind == "literals" else 1
+    steps = [T - 1, T, T + 1, 2 * T - 1, 2 * T, 2 * T + 1, 1, 2, 3, 4, 5,
+             n_cols - 1, n_cols]
+    num = [0, -1, -2**31, 2**31 - 1, n_cols * per + 1]
+    num += [s * per - (i % per) for i, s in enumerate(steps)]
+    num += [4 * n_cols + 3, 4 * n_cols + 4, 4 * n_cols + 5] if per == 4 else []
+    per_block = KE.slots_per_block()
+    B = per_block * (len(num) // per_block + 3) + 1
+    num += rng.integers(-3, n_cols * per + 9, B - len(num)).tolist()
+    # slots 0 and 1 (fixed tables) run long
+    num[0], num[1] = n_cols * per, 2 * T * per
+    assert len(num) == B and (B % per_block != 0 or per_block == 1)
+    _encode_cases(kind, _encode_synthetic(kind, rng, num, n_cols, offset), rng)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["literals", "lmds"])
+def test_cuda_encode_one_slot(kind):
+    """B = 1: one CUDA block holding one slot, the whole row."""
+    rng = np.random.default_rng(43)
+    n_cols = 4 * KE.tile_steps()
+    num = [n_cols * (4 if kind == "literals" else 1)]
+    _encode_cases(kind, _encode_synthetic(kind, rng, num, n_cols), rng,
+                  totals=False)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["literals", "lmds"])
+def test_cuda_encode_more_slots_than_a_wave(kind):
+    """More CUDA blocks than the card holds at once (132 SMs, at most 8
+    blocks each), short rows of random lengths."""
+    rng = np.random.default_rng(47)
+    n_cols = 33
+    B = 132 * 8 * KE.slots_per_block() + 3
+    per = 4 if kind == "literals" else 1
+    num = rng.integers(-5, n_cols * per + 10, B)
+    _encode_cases(kind, _encode_synthetic(kind, rng, num, n_cols), rng)
+
+
 @pytest.mark.cuda
 def test_cuda_encoder_end_to_end():
     """On a card: the encoder runs both kernels and writes the native

@@ -102,6 +102,60 @@ def test_decode_streams_per_block_is_read_from_the_source():
         K.streams_per_block(src.replace("constexpr int kStreams", "int k"))
 
 
+def test_encode_slots_per_block_is_read_from_the_source():
+    """The shape model and the slot sweep read the encode kernels' one
+    tuning constant from ``fse_encode.cu``; the sweep rewrites that line
+    and nothing else."""
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    from lzfse_rust_tpu_torch.tools import block_size_probe as BSP
+    src = KE.SOURCE.read_text()
+    shipped = KE.slots_per_block()
+    assert 1 <= shipped <= 16
+    per_block = PU.streams_per_block()
+    assert per_block["encode literals"] == per_block["encode lmds"] == shipped
+    for slots in BSP.SLOT_SIZES:
+        out = BSP.slots_source(src, slots)
+        assert KE.slots_per_block(out) == slots
+        assert KE.tile_steps(out) == KE.tile_steps()
+        diff = [a for a, b in zip(src.splitlines(), out.splitlines())
+                if a != b]
+        assert len(out.splitlines()) == len(src.splitlines())
+        assert len(diff) == (0 if slots == shipped else 1)
+    with pytest.raises(RuntimeError, match="kSlots"):
+        KE.slots_per_block(src.replace("constexpr int kSlots", "int k"))
+    with pytest.raises(RuntimeError, match="kTile"):
+        KE.tile_steps(src + "\nconstexpr int kTile = 8;\n")
+
+
+def test_encode_shape_model_groups_a_block_of_slots():
+    """An encode CUDA block costs its longest slot: kSlots slots ordered
+    longest first share a group, as the kernels take them."""
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    per = KE.slots_per_block()
+    steps = [100] + [1] * (2 * per - 1)
+    w = PU.warp_waste(steps, min(PU.WARP, per))
+    assert w["warps"] == 2
+    assert w["issued"] == (100 + 1) * per
+    assert w["useful"] == 100 + 2 * per - 1
+
+
+def test_bench_encode_kernels_keeps_only_the_longest_slot():
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    from lzfse_rust_tpu_torch.tools import bench_encode_kernels as BEK
+    raws = [r for r, _ in CP.small_batch(seed=3, n_fse=3, lo=60_000,
+                                         hi=120_000)]
+    for kind, args in zip(("literals", "lmds"),
+                          TorchEncoder("cpu").kernel_args(raws)):
+        one = BEK.longest_only(args)
+        first = int(args["order"][0])
+        n_cols = args["lm" if kind == "lmds" else "words"].shape[1]
+        steps = KE.steps_of(kind, args["num"], n_cols)
+        assert int(steps[first]) == int(steps.max()) > 0
+        assert int(one["num"][first]) == int(args["num"][first])
+        assert int((one["num"] != 0).sum()) == 1
+        assert int((args["num"] != 0).sum()) > 1   # the caller's stay
+
+
 @pytest.mark.parametrize("name", ["no_stores", "no_refills"])
 def test_decode_step_probe_variants_take_out_their_part(name):
     from lzfse_rust_tpu_torch.ops import cuda_decode as K
