@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode, encode and probes once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving decode, both encode frontends and the probes once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -23,7 +23,9 @@ Phases, one line each; any failure exits non-zero and prints no result:
 5. kernels: on the batch's own kernel inputs each CUDA kernel must equal its
    plain PyTorch version bit for bit (decode: every output word, final
    states and positions; encode: every defined push group and the final
-   states); each timed with CUDA events;
+   states; the grouped match finder: every output of every window, one
+   launch per window size as the device frontend makes them); each timed
+   with CUDA events;
 6. slice: ``TorchDecoder("cuda").decode_many`` twice (warm-up, timed); every
    output's SHA-256 must equal its raw input's, with no spec-layer fallback
    and both decode kernels launched; a small mixed batch must decode to its
@@ -32,7 +34,13 @@ Phases, one line each; any failure exits non-zero and prints no result:
    twice (warm-up, timed); every output must equal its corpus container
    (made by the native encoder), with both encode kernels launched;
    ``encode_bytes`` must do the same on the largest and a small input;
-8. the kernels' JSON line (all seven, each with its time, its plain
+8. encode_device: ``TorchEncoder("cuda", frontend="device").encode_many``
+   on the same raw inputs twice (warm-up, timed): every output must equal
+   its corpus container, with the grouped match kernel and both encode
+   kernels launched; the stage split, the windows per size, the bytes up
+   and down and the rate beside the native frontend's; ``encode_bytes`` on
+   the largest and a small input;
+9. the kernels' JSON line (all eight, each with its time, its plain
    version's time and its bound: the larger of the bytes it must move over
    the card's memory rate and its operations over the card's peak rate,
    counted from this run's inputs), then the result line
@@ -67,6 +75,8 @@ KERNELS = (
     ("encode_lmds", "lzfse_rust_tpu_torch/csrc/fse_encode.cu",
      "lzfse_rust_tpu/ops/pallas_encode.py:291"),
 )
+MATCH = ("match_grouped", "lzfse_rust_tpu_torch/csrc/match_find.cu",
+         "lzfse_rust_tpu/ops/match_find_tpu.py:194")
 PROBES = (
     ("probe_step", "lzfse_rust_tpu_torch/csrc/probes.cu",
      "tools/microbench_step.py:38"),
@@ -86,6 +96,10 @@ CHECK_STEPS = {"probe_step": 64, "probe_chain": 16, "probe_tput": 16}
 HBM_BYTES_PER_S = 3.35e12
 OPS_PER_S = 67e12
 OPS_PER_SYMBOL = 5
+# the grouped match finder: at least a dozen operations a slot for the
+# arbitration, and 4 (two shifts, an or, a xor) per 8-byte word compared
+MATCH_OPS_PER_SLOT = 12
+MATCH_OPS_PER_WORD = 4
 PROBE_OPS_PER_STEP = {"probe_step": 1, "probe_chain": 32, "probe_tput": 16}
 
 
@@ -256,12 +270,69 @@ def kernels(dec, enc, pairs) -> list[dict]:
     return rows
 
 
+def match_work(args: dict, outs) -> tuple[int, int]:
+    """(bytes, operations) the grouped match finder needs on these
+    arguments: every input read once, every output written once; per slot
+    the arbitration, and per set candidate bit the 8-byte words compared
+    up to the first difference (from the LCPs found)."""
+    import torch
+    lcps = outs[4]
+    words = torch.where(outs[3] >= 0, (lcps.clamp(0, 63) >> 3) + 1, 0)
+    n_ops = (MATCH_OPS_PER_SLOT * args["pads"].numel()
+             + MATCH_OPS_PER_WORD * int(words.sum()))
+    return _nbytes(*args.values(), *outs), n_ops
+
+
+def match_kernel(enc, pairs) -> dict:
+    """The grouped match kernel against its plain version on every window
+    of the batch's raw inputs, one launch per window size, as the device
+    frontend launches it (the plain version takes one window at a time, so
+    its (N, 64) byte windows fit the card); timed with CUDA events."""
+    import torch
+    from lzfse_rust_tpu_torch.ops import match_find as MF
+    from lzfse_rust_tpu_torch.utils.timing import cuda_ms
+    raws = [r for r, _ in pairs]
+    wins = enc.windows(raws)
+    ms = plain_ms = 0.0
+    err, same, n_bytes, n_ops, slots = 0, True, 0, 0, 0
+    for args in enc.match_args(raws, wins):
+        got = MF.grouped_compact(**args, vn=False)
+        want, p_ms = _event_ms(lambda: MF.grouped_compact_ref(**args,
+                                                              vn=False))
+        eq = [torch.equal(g, w) for g, w in zip(got, want)]
+        same &= all(eq)
+        # the difference is taken only where they differ: the largest
+        # outputs hold about 5 GB
+        err = max([err] + [int((g.long() - w.long()).abs().max())
+                           for g, w, e in zip(got, want, eq) if not e])
+        ms += cuda_ms(lambda: MF.grouped_compact(**args, vn=False), reps=5,
+                      warmup=1)
+        plain_ms += p_ms
+        b, o = match_work(args, got)
+        n_bytes, n_ops = n_bytes + b, n_ops + o
+        slots += args["pads"].numel()
+        del got, want
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    sizes = sorted({w[4] for w in wins})
+    phase("kernel", same and err == 0,
+          f"{MATCH[0]}: {len(wins)} windows ({slots} slots, sizes {sizes}), "
+          f"bit-exact={same}, max_abs_err={err}, kernel {ms:.4f} ms, plain "
+          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({n_bytes} bytes, "
+          f"{n_ops} ops: {bound_by})")
+    return {"name": MATCH[0], "route": "cuda", "source": MATCH[1],
+            "replaces": MATCH[2], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
-    from lzfse_rust_tpu_torch.ops import cuda_decode, cuda_encode, cuda_probes
+    from lzfse_rust_tpu_torch.ops import (cuda_decode, cuda_encode,
+                                          cuda_probes, match_find)
     cuda_decode.reset_launches()
     cuda_encode.reset_launches()
     cuda_probes.reset_launches()
+    match_find.reset_launches()
 
 
 def probe_cases(seed: int):
@@ -390,7 +461,7 @@ def slice_run(dec, pairs) -> dict:
     return launches
 
 
-def encode_run(enc, pairs) -> dict:
+def encode_run(enc, pairs) -> tuple[dict, float]:
     import torch
     from lzfse_rust_tpu_torch.ops import cuda_encode as K
     from lzfse_rust_tpu_torch.utils import corpus as CP
@@ -425,14 +496,74 @@ def encode_run(enc, pairs) -> dict:
           flush=True)
     print(f"[encode] full encode {raw_bytes} bytes in {wall * 1e3:.3f} ms = "
           f"{raw_bytes / wall / 1e9:.4f} GB/s", flush=True)
+    encode_bytes_check("encode_bytes", enc, pairs)
+    return launches, raw_bytes / wall / 1e9
+
+
+def encode_bytes_check(name: str, enc, pairs) -> None:
+    """``encode_bytes`` on the largest and the smallest input above 4 KiB
+    must give their corpus containers."""
     big = max(pairs, key=lambda p: len(p[0]))
     small = min((p for p in pairs if len(p[0]) > 4096),
                 key=lambda p: len(p[0]))
-    phase("encode_bytes", all(enc.encode_bytes(r) == c for r, c in
-                              (big, small)),
+    phase(name, all(enc.encode_bytes(r) == c for r, c in (big, small)),
           f"encode_bytes on {len(big[0])} and {len(small[0])} bytes equals "
           f"the corpus containers")
-    return launches
+
+
+def encode_device_run(enc, pairs, native_gbps: float) -> dict:
+    """``encode_many`` with the device frontend on the batch's raw inputs:
+    warm-up, then the timed run; launches of the grouped match kernel."""
+    import torch
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    from lzfse_rust_tpu_torch.ops import match_find as MF
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
+    raws = [r for r, _ in pairs]
+    raw_bytes = sum(map(len, raws))
+    enc.encode_many(raws)
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    reset_launches()
+    t = time.perf_counter()
+    outs = enc.encode_many(raws, stats)
+    wall = time.perf_counter() - t
+    launches = {**MF.launches, **KE.launches}
+    bad = [i for i, ((_, c), out) in enumerate(zip(pairs, outs)) if out != c]
+    phase("encode_device", not bad and all(n > 0 for n in launches.values()),
+          f"{len(outs)} sources, container mismatches {len(bad)}, "
+          f"launches {launches}")
+    split = {k: round(v * 1e3, 3) for k, v in stats.items()
+             if isinstance(v, float)}
+    det = stats["detail_match"]
+    dev = {k: round(v, 3) for k, v in stats["detail_device"].items()}
+    match_dev = {k: round(sum(d[k] for d in det), 3)
+                 for k in ("upload_ms", "kernel_ms", "download_ms")}
+    print(f"[encode_device] stage split ms {split}; match finder events ms "
+          f"{match_dev}; emission events ms {dev}; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    print(f"[encode_device] windows per size "
+          f"{ {d['N']: d['windows'] for d in det} }; slots "
+          f"{sum(d['slots'] for d in det)}, saturated "
+          f"{sum(d['sat'] for d in det)}, matched "
+          f"{sum(d['matched'] for d in det)}", flush=True)
+    for d in det:
+        print(f"[encode_device] N {d['N']}: {d['windows']} windows, up "
+              f"{d['upload_bytes']} bytes in {d['upload_ms']:.3f} ms, kernel "
+              f"{d['kernel_ms']:.3f} ms, down {d['download_bytes']} bytes in "
+              f"{d['download_ms']:.3f} ms", flush=True)
+    up = sum(d["upload_bytes"] for d in det)
+    down = sum(d["download_bytes"] for d in det)
+    print(f"[encode_device] match finder up {up} bytes = "
+          f"{up / match_dev['upload_ms'] / 1e6:.2f} GB/s, down {down} bytes "
+          f"= {down / match_dev['download_ms'] / 1e6:.2f} GB/s; emission up "
+          f"{stats['upload_bytes']} bytes, down {stats['download_bytes']} "
+          f"bytes", flush=True)
+    print(f"[encode_device] full encode {raw_bytes} bytes in "
+          f"{wall * 1e3:.3f} ms = {raw_bytes / wall / 1e9:.4f} GB/s "
+          f"(native frontend, same run: {native_gbps:.4f} GB/s)", flush=True)
+    encode_bytes_check("encode_device_bytes", enc, pairs)
+    return {"match_grouped": launches["match_grouped"]}
 
 
 def main() -> int:
@@ -450,9 +581,12 @@ def main() -> int:
         from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
         dec = TorchDecoder("cuda")
         enc = TorchEncoder("cuda")
-        rows = kernels(dec, enc, pairs)
+        enc_dev = TorchEncoder("cuda", frontend="device")
+        rows = kernels(dec, enc, pairs) + [match_kernel(enc_dev, pairs)]
         launches = slice_run(dec, pairs)
-        launches.update(encode_run(enc, pairs))
+        enc_launches, native_gbps = encode_run(enc, pairs)
+        launches.update(enc_launches)
+        launches.update(encode_device_run(enc_dev, pairs, native_gbps))
         for r in rows:
             r["launches"] = launches[r["name"]]
         rows += probe_rows

@@ -198,11 +198,14 @@ class _Clock:
         self.stats = stats
         self.t = time.perf_counter()
 
-    def mark(self, key: str) -> None:
+    def mark(self, key: str) -> float:
+        """Add the seconds since the last mark to ``key``; return them."""
         t = time.perf_counter()
+        dt = t - self.t
         if self.stats is not None:
-            self.stats[key] = self.stats.get(key, 0.0) + (t - self.t)
+            self.stats[key] = self.stats.get(key, 0.0) + dt
         self.t = t
+        return dt
 
 
 def host_buffer(old: torch.Tensor | None, n_words: int,
@@ -529,6 +532,10 @@ class TorchDecoder:
             stats["prep"] = stats.get("prep", 0.0) + sum(det.values())
             stats["detail_prep"] = det
         return self._back(sources, results, frame, stats, clock)
+
+    def decode_bytes(self, src: bytes) -> bytes:
+        """Decode one container: ``decode_many([src])[0]``."""
+        return self.decode_many([src])[0]
 
     def kernel_args(self, sources: list[bytes]) -> tuple[dict, dict]:
         """The two kernels' arguments for a batch, on this decoder's device:

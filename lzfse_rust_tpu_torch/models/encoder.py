@@ -34,6 +34,29 @@ choice, per-block staging with ``native.block_weights``, the same two
 kernels, ``native.pack_groups`` (with the V2 weight payload that
 ``native.block_weights`` writes), and header assembly from ``spec.fse``.
 
+``frontend="device"`` ports ``TpuEncoder``'s device frontend (its
+sort-free grouped path): matches are found on the device, then selected
+and emitted as above. ``encode_many`` runs, per stage:
+
+1. small: as above;
+2. win_prep: every large source is cut into overlapping windows of at most
+   ``WINDOW_N`` bytes (``_window_geometry``: each window after the first
+   carries ``WINDOW_CTX`` bytes of history, so its candidates are exact);
+   the windows are grouped by padded size N, and ``native.match_group``
+   groups each window's positions by hash bucket on a host thread pool,
+   into pinned buffers;
+3. matchfind: per N, one upload of the windows, one launch of the grouped
+   match kernel (``ops/match_find.grouped_compact``), the download of the
+   keys and best candidates, and the gather of the saturated slots'
+   candidate columns (``take_sat_cols``);
+4. arbitrate: saturated slots are re-extended exactly on the host
+   (``_arbitrate_window``); matched slots come from the download;
+5. merge: per source, the windows' rows are joined, extended backwards
+   (``spec.match_find._lcp_backward``) and sorted by position;
+6. select: ``native.select_blocks`` per source;
+7. emit_prep, emit_kernels, pack: every block of every source staged and
+   emitted in one pass of the two encode kernels, as ``encode_bytes`` does.
+
 Every output is byte-identical to ``native.encode_bytes``. Unlike the JAX
 encoder, nothing falls back to a host encoder: an error in a kernel, a
 transfer or a native call raises. ``device="cpu"`` runs the kernels' plain
@@ -43,6 +66,7 @@ versions; it exists for the tests. A CUDA device without a card raises.
 from __future__ import annotations
 
 import concurrent.futures as cf
+import math
 import os
 
 import numpy as np
@@ -51,9 +75,11 @@ import torch
 from ..base import constants as C
 from ..base.errors import LzfseError
 from ..ops import cuda_encode as K
+from ..ops import match_find as MF
 from ..ops.fse_encode import build_encode_tables
 from ..runtime.build import native_runtime
 from ..spec import fse as F
+from ..spec.match_find import MatchStream, _lcp_backward, _lcp_forward
 from .decoder import _Clock, _round_up, download
 
 # staged row width: LMDS_PER_BLOCK rounded up to 128, the width
@@ -62,6 +88,18 @@ N_COLS = -(-C.LMDS_PER_BLOCK // 128) * 128
 WPAY_CAP = 640   # bytes per slot for a V2 weight payload (at most 630)
 MAX_SLOTS = 1 << 20
 EOS = C.MAGIC_EOS.to_bytes(4, "little")
+FRONTENDS = ("native", "device")
+
+# Match-window geometry of the device frontend (TpuEncoder's). The padded
+# size N of a window is a power of two; a window leaves 128 bytes of pad
+# headroom. Each window after the first carries WINDOW_CTX bytes of history,
+# which covers the format's largest match distance (262139) and the probe
+# width, so the candidates of its payload positions are exact; each carries
+# 3 bytes past its payload so every payload position has its 4-byte probe.
+WINDOW_N = 1 << 20
+WINDOW_CAP = WINDOW_N - 128
+WINDOW_CTX = 1 << 18
+WINDOW_STRIDE = WINDOW_CAP - WINDOW_CTX - 3
 
 # staging pool: name, per-slot shape, dtype. The first nine are the arrays
 # of native.frontend_stage, in its order; the slot orders ride along
@@ -113,6 +151,96 @@ def _map(fn, items) -> list:
         return list(ex.map(fn, items))
 
 
+# --- device frontend: host halves, copied from TpuEncoder ---------------------
+
+def _bucket_pow2(x: int, lo: int = 4096) -> int:
+    x = max(x, lo)
+    return 1 << (x - 1).bit_length()
+
+
+def _window_geometry(n_full: int, start: int):
+    """(base, ctx, n, N) for the window probing src[start : start+stride]
+    with its history context."""
+    ctx = min(start, WINDOW_CTX)
+    base = start - ctx
+    n = min(n_full, start + WINDOW_STRIDE + 3) - base
+    N = min(_bucket_pow2(n + 128), WINDOW_N)
+    assert n + 128 <= N
+    return base, ctx, n, N
+
+
+def _source_windows(i: int, n_full: int) -> list:
+    """The windows ``(i, base, ctx, n, N)`` of source i, n_full bytes."""
+    return [(i, *_window_geometry(n_full, start))
+            for start in range(0, n_full, WINDOW_STRIDE)]
+
+
+def _arbitrate_window(full: np.ndarray, base: int, ctx: int, n: int, pos,
+                      cands, lcps, vn: bool):
+    """Host half of one window: payload filtering, exact re-extension of
+    window-saturated LCPs, FIFO strict-max arbitration. Returns the
+    (abs_pos, best_cand, best_len) rows that matched."""
+    n_full = len(full)
+    pos = pos.astype(np.int64)
+    cands = cands.astype(np.int64)
+    lcps = lcps.astype(np.int64)
+
+    # only payload-region probes count; context and overhang probes are
+    # discarded (the overhang belongs to the next window's payload)
+    payload = (pos >= ctx) & (pos < ctx + WINDOW_STRIDE)
+    pos = pos[payload]
+    cands = cands[:, payload]
+    lcps = lcps[:, payload]
+    abs_pos = pos + base
+
+    best_len = np.zeros(len(pos), np.int64)
+    best_cand = np.zeros(len(pos), np.int64)
+    for r in range(cands.shape[0]):
+        cand_r, lcp_r = cands[r], lcps[r]
+        abs_cand = cand_r + base
+        # an LCP is truncated if it hit the 64-byte compare window OR the
+        # window end; both re-extend against the full buffer with the
+        # block-end cap
+        sat = np.flatnonzero(
+            (cand_r >= 0) & (abs_pos + lcp_r < n_full)
+            & ((lcp_r == MF.WINDOW) | (pos + lcp_r >= n)))
+        if len(sat):
+            lcp_r[sat] = _lcp_forward(
+                full, abs_pos[sat], abs_cand[sat], lcp_r[sat],
+                (n_full - abs_pos[sat]).astype(np.int64))
+        if vn:
+            mlen = np.where(lcp_r >= 4, lcp_r, np.where(lcp_r == 3, 3, 0))
+        else:
+            mlen = np.where(lcp_r >= 4, lcp_r, 0)
+        mlen = np.where(cand_r >= 0, mlen, 0)
+        take = mlen > best_len
+        best_len[take] = mlen[take]
+        best_cand[take] = abs_cand[take]
+
+    keep = best_len > 0
+    return abs_pos[keep], best_cand[keep], best_len[keep]
+
+
+def _by_n(wins: list) -> list:
+    """(N, indices of the windows of padded size N), N ascending."""
+    by_n: dict = {}
+    for k, w in enumerate(wins):
+        by_n.setdefault(w[4], []).append(k)
+    return sorted(by_n.items())
+
+
+def _merge(full: np.ndarray, parts) -> MatchStream:
+    """One source's windows' (abs_pos, cand, len) rows joined into a match
+    stream: backward extension, then sorted by position (stable)."""
+    pos_k = np.concatenate([p for p, _, _ in parts])
+    cand_k = np.concatenate([c for _, c, _ in parts])
+    fwd_k = np.concatenate([f for _, _, f in parts])
+    back_k = _lcp_backward(full, pos_k, cand_k, np.minimum(cand_k, pos_k))
+    order = np.argsort(pos_k, kind="stable")
+    return MatchStream(pos=pos_k[order], match_pos=cand_k[order],
+                       fwd_len=fwd_k[order], back_max=back_k[order])
+
+
 class _Pool:
     """Host staging arrays for ``slots`` blocks: torch tensors (pinned for a
     card) and the numpy views the native calls fill."""
@@ -129,9 +257,13 @@ class _Pool:
 
 class TorchEncoder:
     """Batched container encoder whose tANS emission runs in the CUDA
-    kernels of ``ops/cuda_encode.py`` (or their plain versions on CPU)."""
+    kernels of ``ops/cuda_encode.py`` (or their plain versions on CPU).
 
-    def __init__(self, device="cuda"):
+    ``frontend`` picks the match finder: ``"native"`` (the default, the
+    native history-table frontend per source) or ``"device"`` (windowed
+    match finding in the kernel of ``ops/match_find.py``)."""
+
+    def __init__(self, device="cuda", frontend: str = "native"):
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -139,14 +271,30 @@ class TorchEncoder:
                                    "but CUDA is not available")
         elif self.device.type != "cpu":
             raise ValueError(f"TorchEncoder: unsupported device {device!r}")
+        if frontend not in FRONTENDS:
+            raise ValueError(f"TorchEncoder: frontend must be one of "
+                             f"{FRONTENDS}, got {frontend!r}")
+        self.frontend = frontend
         self._native = native_runtime()
         self._pool: _Pool | None = None
         self._pool_free = None   # event: the last upload from _pool is done
         self._down: torch.Tensor | None = None   # host download, int32
         self._arena: np.ndarray | None = None    # packed block bodies
+        self._bufs: dict = {}    # the device frontend's host buffers, bytes
         self.last_emission: str | None = None
 
     # -- staging ---------------------------------------------------------
+
+    def _host(self, key: str, shape: tuple, dtype) -> torch.Tensor:
+        """A host tensor of ``shape`` over the reusable byte buffer ``key``
+        (pinned for a card), grown when too small."""
+        n = math.prod(shape) * dtype.itemsize
+        buf = self._bufs.get(key)
+        if buf is None or buf.numel() < n:
+            buf = torch.empty(_round_up(max(n, 1), 1 << 20), dtype=torch.uint8,
+                              pin_memory=self.device.type == "cuda")
+            self._bufs[key] = buf
+        return buf[:n].view(dtype).view(shape)
 
     def _staging(self, slots: int) -> _Pool:
         # the previous call's upload may still read the pool: wait for it
@@ -262,11 +410,14 @@ class TorchEncoder:
         ``native.encode_bytes`` per source.
 
         ``stats``, when given, receives wall-clock seconds per stage
-        (``small``, ``frontend``, ``emit_prep``, ``emit_kernels``, ``pack``),
-        the bytes sent up and brought back (``upload_bytes``,
+        (``small``, ``frontend``, ``emit_prep``, ``emit_kernels``, ``pack``;
+        with the device frontend ``win_prep``, ``matchfind``, ``arbitrate``,
+        ``merge`` and ``select`` in place of ``frontend``), the emission's
+        bytes sent up and brought back (``upload_bytes``,
         ``download_bytes``) and, on a card, the CUDA-event milliseconds of
-        the upload, the E tables and kernels, and the download under
-        ``detail_device``.
+        its upload, E tables and kernels, and download under
+        ``detail_device``. The device frontend adds ``detail_match``, one
+        dict per window size (see ``_windows_compact_grouped``).
         Not re-entrant: the staging buffers belong to the encoder."""
         clock = _Clock(stats)
         results: list = [None] * len(sources)
@@ -279,6 +430,9 @@ class TorchEncoder:
         clock.mark("small")
         if not big:
             return results
+        if self.frontend == "device":
+            return self._encode_many_device(sources, big, results, stats,
+                                            clock)
         pool, nb, out_lists, nb_of = self._frontends(sources, big)
         clock.mark("frontend")
         glo, gmeta, lfs, mlo, mmeta, mfs = self._emit(pool, nb, stats, clock)
@@ -312,11 +466,14 @@ class TorchEncoder:
         return results
 
     def encode_bytes(self, src: bytes) -> bytes:
-        """Encode one source: the native frontend's blocks, emitted on the
-        device one block per slot. Byte-identical to ``native.encode_bytes``."""
+        """Encode one source: the frontend's blocks, emitted on the device
+        one block per slot. Byte-identical to ``native.encode_bytes``."""
         if len(src) <= C.VN_CUTOFF:
             return self._native.encode_bytes(src)
-        blocks = _parse_blocks(self._native.frontend_blocks(src))
+        if self.frontend == "device":
+            blocks = self._select_blocks(src, self._device_matches(src, False))
+        else:
+            blocks = _parse_blocks(self._native.frontend_blocks(src))
         body = b"".join(self._emit_best(blocks))
         self.last_emission = "device"
         return body + EOS
@@ -332,12 +489,191 @@ class TorchEncoder:
         pool, nb, _, _ = self._frontends(sources, big)
         return self._kwargs(self._upload(pool, nb))
 
-    # -- encode_bytes: per-block staging ---------------------------------
+    def match_args(self, sources: list[bytes], wins: list) -> list[dict]:
+        """``grouped_compact``'s arguments (all but ``vn``) for the windows
+        ``wins`` (a subset of ``windows(sources)``), one dict per window
+        size N in ascending order, on this encoder's device, as the device
+        frontend passes them (``vn`` False)."""
+        fulls = {w[0]: np.frombuffer(sources[w[0]], np.uint8) for w in wins}
+        return [{k: t.to(self.device, copy=True) for k, t in
+                 self._window_inputs(fulls, [wins[k] for k in idxs], N,
+                                     False).items()}
+                for N, idxs in _by_n(wins)]
 
-    def _emit_best(self, blocks) -> list:
+    @staticmethod
+    def windows(sources: list[bytes]) -> list[tuple]:
+        """Every device-frontend window of the sources above ``VN_CUTOFF``:
+        ``(source index, base, ctx, n, N)``, in source order."""
+        return [w for i, s in enumerate(sources) if len(s) > C.VN_CUTOFF
+                for w in _source_windows(i, len(s))]
+
+    # -- device frontend -------------------------------------------------
+
+    def _encode_many_device(self, sources, big, results, stats, clock):
+        """``encode_many`` with the device frontend (``TpuEncoder``'s
+        ``frontend="device"`` branch): windowed device match finding, then
+        native selection and one emission pass over every block."""
+        wins = self.windows(sources)
+        fulls = {i: np.frombuffer(sources[i], dtype=np.uint8) for i in big}
+        clock.mark("win_prep")
+        win_out = self._windows_compact_grouped(fulls, wins, False, stats,
+                                                clock)
+        parts: dict = {i: [] for i in big}
+        for k, w in enumerate(wins):
+            parts[w[0]].append(win_out[k])
+        streams = {i: _merge(fulls[i], parts[i]) for i in big}
+        clock.mark("merge")
+        per_src = {i: self._select_blocks(sources[i], streams[i]) for i in big}
+        clock.mark("select")
+        flat: list = []
+        spans: dict = {}
+        for i in big:
+            spans[i] = (len(flat), len(per_src[i]))
+            flat.extend(per_src[i])
+        bodies = self._emit_best(flat, stats, clock)
+        for i in big:
+            off, cnt = spans[i]
+            results[i] = b"".join(bodies[off:off + cnt]) + EOS
+        clock.mark("pack")
+        self.last_emission = "device"
+        return results
+
+    def _device_matches(self, src: bytes, vn: bool) -> MatchStream:
+        """One source's match stream through its device windows."""
+        full = np.frombuffer(src, dtype=np.uint8)
+        wins = _source_windows(0, len(src))
+        win_out = self._windows_compact_grouped({0: full}, wins, vn)
+        return _merge(full, [win_out[k] for k in range(len(wins))])
+
+    def _select_blocks(self, src: bytes, stream: MatchStream):
+        """Native selection and block splitting of a match stream, without
+        emission: the raw blocks ``_emit_best`` takes."""
+        rows = np.stack([stream.pos, stream.match_pos, stream.fwd_len,
+                         stream.back_max], axis=1)
+        return _parse_blocks(self._native.select_blocks(src, rows))
+
+    def _window_inputs(self, fulls: dict, wins: list, N: int,
+                       vn: bool) -> dict:
+        """Host tensors (pinned for a card, reused across calls) of
+        ``grouped_compact``'s arguments for windows of size N: each window's
+        bytes, zero-padded to N, and its positions grouped by hash bucket
+        (``native.match_group``, on a host thread pool)."""
+        B = len(wins)
+        t = {"pads": self._host("pads", (B, N), torch.uint8),
+             "n_reals": self._host("n_reals", (B,), torch.int32),
+             "los": self._host("los", (B,), torch.int32),
+             "his": self._host("his", (B,), torch.int32),
+             "orders": self._host("orders", (B, N), torch.int32),
+             "oks": self._host("oks", (B, N), torch.uint8)}
+        a = {k: v.numpy() for k, v in t.items()}
+
+        def group(r):
+            i, base, ctx, n, _ = wins[r]
+            a["pads"][r, :n] = fulls[i][base:base + n]
+            a["pads"][r, n:] = 0
+            a["n_reals"][r], a["los"][r] = n, ctx
+            a["his"][r] = ctx + WINDOW_STRIDE
+            a["orders"][r], a["oks"][r] = self._native.match_group(
+                a["pads"][r], n, vn)
+
+        _map(group, range(B))
+        return t
+
+    def _windows_compact_grouped(self, fulls: dict, wins: list, vn: bool,
+                                 stats: dict | None = None,
+                                 clock: _Clock | None = None) -> dict:
+        """Match rows of every window ``(src_idx, base, ctx, n, N)`` of the
+        sources ``fulls``: window index -> (abs_pos, best_cand, best_len).
+
+        Per window size N: ``_window_inputs`` (``win_prep``); one upload,
+        one ``grouped_compact`` launch, the download of keys, best
+        candidates and lengths, and ``take_sat_cols`` on the saturated slots
+        (``matchfind``); ``_arbitrate_window`` on those and the matched
+        slots as they are (``arbitrate``). With ``stats``, each window size
+        appends to ``stats["detail_match"]`` its N, window count, slots,
+        saturated and matched slots, bytes up and down, the seconds of its
+        three stages (``win_prep_s``, ``matchfind_s``, ``arbitrate_s``) and,
+        on a card, the CUDA-event ms of the upload, the kernel and the
+        download."""
+        clock = clock or _Clock(stats)
+        cuda = self.device.type == "cuda"
+        out: dict = {}
+        for N, idxs in _by_n(wins):
+            B = len(idxs)
+            host = self._window_inputs(fulls, [wins[k] for k in idxs], N, vn)
+            prep_s = clock.mark("win_prep")
+            if cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+            dev = {k: v.to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+            if cuda:
+                ev[1].record()
+            keys, bc, bl, cands, lcps = MF.grouped_compact(**dev, vn=vn)
+            if cuda:
+                ev[2].record()
+                down = [self._host(f"down{j}", tuple(x.shape), x.dtype)
+                        for j, x in enumerate((keys, bc, bl))]
+                for h, x in zip(down, (keys, bc, bl)):
+                    h.copy_(x, non_blocking=True)
+                ev[3].record()
+                ev[3].synchronize()
+            else:
+                down = [keys, bc, bl]
+            keys_h, bc_h, bl_h = (x.numpy() for x in down)
+            sat_idx = [np.flatnonzero(kr == 0) for kr in keys_h]
+            mat_idx = [np.flatnonzero(kr == 1) for kr in keys_h]
+            # only the saturated slots need their candidate columns
+            smax = max(len(s) for s in sat_idx)
+            idx = np.zeros((B, smax), np.int32)
+            for r, s in enumerate(sat_idx):
+                idx[r, :len(s)] = s
+            cands_s, lcps_s = (x.cpu().numpy() for x in MF.take_sat_cols(
+                cands, lcps, torch.from_numpy(idx).to(self.device)))
+            del dev, keys, bc, bl, cands, lcps
+            find_s = clock.mark("matchfind")
+            orders = host["orders"].numpy()
+            for r, k in enumerate(idxs):
+                i, base, ctx, n, _ = wins[k]
+                s_i, m_i = sat_idx[r], mat_idx[r]
+                S = len(s_i)
+                if S:
+                    sp, sc, sl = _arbitrate_window(
+                        fulls[i], base, ctx, n, orders[r][s_i],
+                        cands_s[r, :, :S], lcps_s[r, :, :S], vn)
+                else:
+                    sp = sc = sl = np.zeros(0, np.int64)
+                dp = orders[r][m_i].astype(np.int64) + base
+                dc = bc_h[r][m_i].astype(np.int64) + base
+                dl = bl_h[r][m_i].astype(np.int64)
+                out[k] = (np.concatenate([sp, dp]), np.concatenate([sc, dc]),
+                          np.concatenate([sl, dl]))
+            arb_s = clock.mark("arbitrate")
+            if stats is not None:
+                det = {"N": N, "windows": B, "slots": B * N,
+                       "sat": sum(map(len, sat_idx)),
+                       "matched": sum(map(len, mat_idx)),
+                       "upload_bytes": sum(x.nbytes for x in host.values())
+                       + idx.nbytes,
+                       "download_bytes": keys_h.nbytes + bc_h.nbytes
+                       + bl_h.nbytes + cands_s.nbytes + lcps_s.nbytes,
+                       "win_prep_s": prep_s, "matchfind_s": find_s,
+                       "arbitrate_s": arb_s}
+                if cuda:
+                    det.update(upload_ms=ev[0].elapsed_time(ev[1]),
+                               kernel_ms=ev[1].elapsed_time(ev[2]),
+                               download_ms=ev[2].elapsed_time(ev[3]))
+                stats.setdefault("detail_match", []).append(det)
+        return out
+
+    # -- per-block staging (encode_bytes, the device frontend) -----------
+
+    def _emit_best(self, blocks, stats: dict | None = None,
+                   clock: _Clock | None = None) -> list:
         """Block bodies with the period-split decision (emit_best): a block
         with an eligible alternative emits both row forms in the same pass
-        and the strictly smaller body wins (ties keep the block as is)."""
+        and the strictly smaller body wins (ties keep the block as is).
+        ``stats`` and ``clock`` as in ``_emit``."""
         flat = list(blocks)
         alt_of: dict[int, int] = {}
         for bi, (lits, rows, n_mb) in enumerate(blocks):
@@ -345,7 +681,7 @@ class TorchEncoder:
             if alt is not None:
                 alt_of[bi] = len(flat)
                 flat.append((lits, alt, n_mb))
-        bodies = self._emit_blocks(flat)
+        bodies = self._emit_blocks(flat, stats, clock or _Clock(stats))
         out = []
         for bi in range(len(blocks)):
             j = alt_of.get(bi)
@@ -353,7 +689,8 @@ class TorchEncoder:
                        and len(bodies[j]) < len(bodies[bi]) else bodies[bi])
         return out
 
-    def _emit_blocks(self, blocks) -> list:
+    def _emit_blocks(self, blocks, stats: dict | None,
+                     clock: _Clock) -> list:
         """One body per block: weights and rows staged per block, both
         kernels over all blocks at once, groups packed per block."""
         nb = len(blocks)
@@ -378,8 +715,7 @@ class TorchEncoder:
             a["lmd_num"][i] = nr
 
         _map(stage, range(nb))
-        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit(pool, nb, None,
-                                                      _Clock(None))
+        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit(pool, nb, stats, clock)
 
         def pack(i):
             lits, _, n_mb = blocks[i]

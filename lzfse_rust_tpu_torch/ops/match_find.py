@@ -1,0 +1,185 @@
+"""Grouped match finding: the CUDA kernel, its plain version, and the gather
+of the saturated slots' candidate columns.
+
+Counterpart of ``lzfse_rust_tpu/ops/match_find_tpu.py``'s sort-free path
+(``find_matches_grouped_compact`` and ``take_sat_cols``). The host has
+already grouped each window's positions by hash bucket
+(``native.match_group``): ``orders[b]`` lists window b's positions in
+grouped order, and bit r-1 of ``oks[b, s]`` is set when the position r
+slots back, ``orders[b, s - r]``, is a valid candidate of ``orders[b, s]``.
+For every slot ``s`` of every window ``b``, with ``p = orders[b, s]``:
+
+* candidate r (1..4) is ``c = orders[b, s - r]`` (the slot axis wraps, as
+  ``jnp.roll`` does) where its bit is set, else ``-1``;
+* its LCP is the index of the first byte where the 64-byte windows at p and
+  at c differ (64 if none; the byte axis wraps at N, as the reference's
+  rolled windows do), clipped as ``jnp.clip(lcp, 0, n_real - p)``, and 0
+  where the bit is clear;
+* arbitration in r order, strict ``>``: a match length is the LCP when it
+  is at least 4 (or 3 with ``vn``), else 0; a candidate saturates when its
+  LCP is 64 or reaches ``n_real``;
+* a payload slot (``lo <= p < hi``) keys 0 when saturated, 1 when matched,
+  2 otherwise; every other slot keys 2.
+
+Inputs, all contiguous on one device: ``pads`` (B, N) uint8, ``n_reals``,
+``los``, ``his`` (B,) int32, ``orders`` (B, N) int32 (positions in
+[0, N)), ``oks`` (B, N) uint8. Outputs: ``keys`` (B, N) uint8,
+``best_cand`` and ``best_len`` (B, N) int32 (0 where nothing matched),
+``cands`` and ``lcps`` (B, 4, N) int32.
+
+On a CUDA device ``grouped_compact`` launches the kernel
+(``csrc/match_find.cu``) or raises; only for CPU tensors does it run the
+plain version. ``launches`` counts kernel launches.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..base import constants as C
+from ..runtime import cuda_lib
+from .cuda_decode import _pointers
+
+WINDOW = 64  # bytes compared per LCP; longer runs are re-extended on the host
+
+# kernel launches, for checks that a run went through the kernel
+launches = {"match_grouped": 0}
+
+_INPUTS = (("pads", torch.uint8, 2), ("n_reals", torch.int32, 1),
+           ("los", torch.int32, 1), ("his", torch.int32, 1),
+           ("orders", torch.int32, 2), ("oks", torch.uint8, 2))
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def _validate(tensors: dict) -> tuple[torch.device, int, int]:
+    """Every input of its dtype, contiguous, on the device of ``pads``:
+    (B, N) rows and (B,) vectors. Returns (device, B, N)."""
+    pads = tensors["pads"]
+    if pads.dim() != 2:
+        raise ValueError(f"grouped_compact: pads must be (B, N), got "
+                         f"{tuple(pads.shape)}")
+    B, N = pads.shape
+    for key, dtype, dims in _INPUTS:
+        t = tensors[key]
+        want = (B, N) if dims == 2 else (B,)
+        if t.dtype != dtype:
+            raise TypeError(f"grouped_compact: {key} must be {dtype}, got "
+                            f"{t.dtype}")
+        if not t.is_contiguous():
+            raise ValueError(f"grouped_compact: {key} must be contiguous")
+        if t.device != pads.device:
+            raise ValueError(f"grouped_compact: {key} is on {t.device}, pads "
+                             f"on {pads.device}")
+        if tuple(t.shape) != want:
+            raise ValueError(f"grouped_compact: {key} must be {want}, got "
+                             f"{tuple(t.shape)}")
+    return pads.device, B, N
+
+
+def grouped_compact(pads, n_reals, los, his, orders, oks, vn: bool):
+    """Grouped candidate LCPs and FIFO strict-max arbitration for a batch of
+    windows. Returns ``(keys, best_cand, best_len, cands, lcps)`` (see the
+    module docstring)."""
+    dev, B, N = _validate(dict(pads=pads, n_reals=n_reals, los=los, his=his,
+                               orders=orders, oks=oks))
+    if dev.type == "cpu":
+        return grouped_compact_ref(pads, n_reals, los, his, orders, oks, vn)
+    if dev.type != "cuda":
+        raise ValueError(f"grouped_compact: no kernel for device {dev}")
+    # the kernel reads each row as aligned 8-byte words
+    if N % 8 or pads.data_ptr() % 8:
+        raise ValueError(f"grouped_compact: the kernel needs N a multiple "
+                         f"of 8 and 8-byte aligned pads, got N={N}")
+    keys = torch.empty((B, N), dtype=torch.uint8, device=dev)
+    best_cand = torch.empty((B, N), dtype=torch.int32, device=dev)
+    best_len = torch.empty((B, N), dtype=torch.int32, device=dev)
+    cands = torch.empty((B, C.HASH_WIDTH, N), dtype=torch.int32, device=dev)
+    lcps = torch.empty((B, C.HASH_WIDTH, N), dtype=torch.int32, device=dev)
+    if B and N:
+        with torch.cuda.device(dev):
+            rc = cuda_lib.lib().lzt_match_grouped(
+                *_pointers(pads, n_reals, los, his, orders, oks, keys,
+                           best_cand, best_len, cands, lcps),
+                B, N, int(bool(vn)), torch.cuda.current_stream(dev).cuda_stream)
+        cuda_lib.check(rc, "match_grouped")
+        launches["match_grouped"] += 1
+    return keys, best_cand, best_len, cands, lcps
+
+
+def take_sat_cols(cands, lcps, idx):
+    """The candidate and LCP columns (B, 4, S) of the slots ``idx`` (B, S)
+    (int32, zero-padded): a gather along the slot axis."""
+    at = idx.long()[:, None, :].expand(-1, cands.shape[1], -1)
+    return cands.gather(2, at), lcps.gather(2, at)
+
+
+# --- plain version --------------------------------------------------------------
+
+def _windows_fwd(src_pad):
+    """(N,) uint8 -> (N, WINDOW) forward byte windows, wrapping at N:
+    row i is ``roll(src_pad, -i)[:WINDOW]``."""
+    n = src_pad.shape[0]
+    ext = torch.cat([src_pad, src_pad.repeat(-(-WINDOW // n))[:WINDOW - 1]])
+    return ext.unfold(0, WINDOW, 1)
+
+
+def _first_mismatch(a, b):
+    """Index of the first differing byte of each row pair, WINDOW if none."""
+    neq = a != b
+    first = neq.to(torch.uint8).argmax(dim=1).to(torch.int32)
+    return torch.where(neq.any(dim=1), first, WINDOW)
+
+
+def _grouped_core(src_pad, n_real, order, ok):
+    """Window b's candidates (HASH_WIDTH, N) and clipped first-window LCPs,
+    in grouped-slot order: candidate r of slot s is slot s - r."""
+    pos = order
+    cap = n_real - pos
+    a = _windows_fwd(src_pad)[pos.long()]
+    cands, lcps = [], []
+    for r in range(1, C.HASH_WIDTH + 1):
+        okr = ((ok.to(torch.int32) >> (r - 1)) & 1) != 0
+        b = torch.roll(a, r, dims=0)
+        lcp = torch.minimum(torch.clamp(_first_mismatch(a, b), min=0), cap)
+        lcps.append(torch.where(okr, lcp, 0))
+        cands.append(torch.where(okr, torch.roll(order, r), -1))
+    return pos, torch.stack(cands), torch.stack(lcps)
+
+
+def _grouped_compact_one(src_pad, n_real, lo, hi, order, ok, vn: bool):
+    """One window: ``(key, best_cand, best_len, cands, lcps)``."""
+    pos, cands, lcps = _grouped_core(src_pad, n_real, order, ok)
+    best_len = torch.zeros_like(pos)
+    best_cand = torch.zeros_like(pos)
+    sat = torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
+    for cand, lcp in zip(cands, lcps):
+        okc = cand >= 0
+        short = torch.where(lcp == 3, lcp, 0) if vn else torch.zeros_like(lcp)
+        mlen = torch.where(okc, torch.where(lcp >= 4, lcp, short), 0)
+        sat = sat | (okc & ((lcp == WINDOW) | (pos + lcp >= n_real)))
+        take = mlen > best_len
+        best_len = torch.where(take, mlen, best_len)
+        best_cand = torch.where(take, cand, best_cand)
+    payload = (pos >= lo) & (pos < hi)
+    sat = payload & sat
+    matched = payload & ((best_len > 0) | sat)
+    key = torch.where(sat, 0, torch.where(matched, 1, 2)).to(torch.uint8)
+    return key, best_cand, best_len, cands, lcps
+
+
+def grouped_compact_ref(pads, n_reals, los, his, orders, oks, vn: bool):
+    """Plain PyTorch version of ``grouped_compact``, one window at a time;
+    same arguments and results."""
+    B, N = pads.shape
+    if B == 0 or N == 0:
+        dev = pads.device
+        z = torch.zeros((B, N), dtype=torch.int32, device=dev)
+        zc = torch.zeros((B, C.HASH_WIDTH, N), dtype=torch.int32, device=dev)
+        return z.to(torch.uint8), z, z.clone(), zc, zc.clone()
+    outs = [_grouped_compact_one(pads[b], n_reals[b], los[b], his[b],
+                                 orders[b], oks[b], vn) for b in range(B)]
+    return tuple(torch.stack(col) for col in zip(*outs))

@@ -27,6 +27,9 @@ _ENTRY_POINTS = {
     # (csrc/fse_encode.cu)
     "lzt_encode_literals": [_P] * 7 + [_I, _I, _P],
     "lzt_encode_lmds": [_P] * 10 + [_I, _I, _P],
+    # pads, n_reals, los, his, orders, oks, 5 outputs; nb, n, vn, stream
+    # (csrc/match_find.cu)
+    "lzt_match_grouped": [_P] * 11 + [_I, _I, _I, _P],
     # body; tab, chunk, x, out; n_rows, n_steps, stream (csrc/probes.cu)
     "lzt_probe_step": [_I] + [_P] * 4 + [_I, _I, _P],
     # body -> 1 table in shared memory, 0 in device memory, -1 unknown

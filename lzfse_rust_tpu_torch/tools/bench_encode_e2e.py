@@ -9,8 +9,9 @@ native encoder wrote), then ``RUNS`` (default 5) timed runs with ``stats``.
 The wall, each host stage and each CUDA-event device stage is the
 second-smallest over the runs. Unlike the JAX tool, the device is timed
 inside the real call (CUDA events), not modelled from in-jit repetition.
-The JAX tool's ``LZT_ENC_DEVFE`` part (the device match finder) waits for
-its port (ROADMAP Queue 1 item 6). The last line is one JSON object.
+The JAX tool's ``LZT_ENC_DEVFE`` part (the device match finder) is not
+ported; ``chip_smoke.py`` and ``bench_match_find`` time that frontend.
+The last line is one JSON object.
 """
 
 from __future__ import annotations

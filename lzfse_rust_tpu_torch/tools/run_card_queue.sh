@@ -54,6 +54,7 @@ want per_file "${ARGS[@]}"    && run per_file 900 bench_per_file
 # 4. encode kernels and stages
 want enc_kernels "${ARGS[@]}" && run enc_kernels 300 bench_encode_kernels
 want enc_e2e "${ARGS[@]}"     && run enc_e2e 600 bench_encode_e2e
+want match_find "${ARGS[@]}"  && run match_find 600 bench_match_find
 # 5. shape model
 want util "${ARGS[@]}"        && run util 300 predict_utilization
 

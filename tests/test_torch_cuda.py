@@ -12,11 +12,13 @@ from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
 from lzfse_rust_tpu_torch.ops import cuda_encode as KE
 from lzfse_rust_tpu_torch.ops import cuda_probes as P
+from lzfse_rust_tpu_torch.ops import match_find as MF
 from lzfse_rust_tpu_torch.ops.fse_encode import build_encode_tables
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.tools import microbench_step as PS
 from lzfse_rust_tpu_torch.utils import corpus
-from torch_kit import blocks_of, encode_blocks, encode_rows, port_args
+from torch_kit import (blocks_of, encode_blocks, encode_rows, grouped_inputs,
+                       port_args, window_rows, words)
 
 
 @pytest.fixture(autouse=True)
@@ -310,6 +312,99 @@ def test_cuda_encoder_end_to_end():
     big = max(raws, key=len)
     assert enc.encode_bytes(big) == nat.encode_bytes(big)
     assert all(KE.launches[k] == before[k] + 2 for k in before)
+
+
+def _match_cases(a: dict, vn: bool):
+    """The grouped-match kernel against its plain version on the card, on
+    numpy arguments ``a``; the plain version is never taken for CUDA
+    tensors."""
+    args = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
+            for k, v in a.items()}
+    before = MF.launches["match_grouped"]
+    got = MF.grouped_compact(**args, vn=vn)
+    torch.cuda.synchronize()
+    assert MF.launches["match_grouped"] == before + 1
+    for g, w in zip(got, MF.grouped_compact_ref(**args, vn=vn)):
+        assert g.dtype == w.dtype and torch.equal(g, w)
+    return got
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vn", [False, True])
+def test_cuda_match_grouped_one_window(vn):
+    rng = np.random.default_rng(61)
+    n = 4096 - 128
+    rows = [(words(rng, 4096)[:n], n, 0, n - 3)]
+    keys = _match_cases(grouped_inputs(rows, 4096, vn,
+                                       native_runtime().match_group), vn)[0]
+    assert (keys == 1).any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vn", [False, True])
+def test_cuda_match_grouped_edge_windows(vn):
+    """Saturating runs, an all-zero row (every probed slot saturated), a
+    match truncated at n_real, random bytes, n_real below 4, and lo/hi
+    cutting the payload."""
+    keys = _match_cases(grouped_inputs(window_rows(4096, 62 + vn), 4096, vn,
+                                       native_runtime().match_group), vn)[0]
+    assert (keys[4, 1:4096 - 128 - 3] == 0).all()   # slot 0: no candidate
+    assert (keys[5:] == 2).all()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vn", [False, True])
+def test_cuda_match_grouped_more_windows_than_a_wave(vn):
+    """80 windows of 16 CUDA blocks each: more blocks than the card holds
+    at once (132 SMs, 8 blocks of 256 threads each)."""
+    rng = np.random.default_rng(63)
+    kinds = corpus.KINDS
+    rows = []
+    for b in range(80):
+        n = int(rng.integers(0, 4096 - 128))
+        data = corpus.make_raw(kinds[b % len(kinds)], n, rng)
+        lo = int(rng.integers(0, n + 1))
+        rows.append((data, n, lo, int(rng.integers(lo, 4097))))
+    _match_cases(grouped_inputs(rows, 4096, vn,
+                                native_runtime().match_group), vn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vn", [False, True])
+def test_cuda_match_grouped_any_orders_and_bits(vn):
+    """Orders that are any permutation and every candidate bit set: windows
+    that wrap at N, slots below r that wrap to the end, candidates after
+    their slot."""
+    rng = np.random.default_rng(64)
+    B, N = 3, 512
+    a = dict(pads=rng.integers(0, 4, (B, N), dtype=np.uint8),
+             n_reals=np.array([N, N - 100, 7], np.int32),
+             los=np.array([0, 10, 0], np.int32),
+             his=np.array([N, N - 200, N], np.int32),
+             orders=np.stack([rng.permutation(N) for _ in range(B)])
+             .astype(np.int32),
+             oks=rng.integers(0, 256, (B, N), dtype=np.uint8))
+    a["pads"][1, ::7] = 9
+    _match_cases(a, vn)
+
+
+@pytest.mark.cuda
+def test_cuda_device_frontend_end_to_end():
+    """On a card: the device frontend launches the match kernel and both
+    encode kernels and writes the native encoder's containers."""
+    raws = [r for r, _ in corpus.small_batch(seed=22, n_fse=5, lo=3_000,
+                                             hi=60_000)]
+    nat = native_runtime()
+    enc = TorchEncoder("cuda", frontend="device")
+    before = {**KE.launches, **MF.launches}
+    stats: dict = {}
+    assert enc.encode_many(raws, stats) == [nat.encode_bytes(r) for r in raws]
+    after = {**KE.launches, **MF.launches}
+    assert all(after[k] > before[k] for k in before)
+    assert all({"upload_ms", "kernel_ms", "download_ms"} <= set(d)
+               for d in stats["detail_match"])
+    big = max(raws, key=len)
+    assert enc.encode_bytes(big) == nat.encode_bytes(big)
 
 
 @pytest.mark.cuda

@@ -18,6 +18,7 @@ from lzfse_rust_tpu.spec import container as spec_container
 from lzfse_rust_tpu_torch import TorchDecoder
 from lzfse_rust_tpu_torch.base import errors as port_errors
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
+from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.utils import corpus
 
 STAGES = {"parse", "prep", "device", "flatten", "rebuild", "detail_prep"}
@@ -57,6 +58,26 @@ def test_equals_tpu_decoder_interpret(mixed, dec, monkeypatch):
     assert got == [r for r, _ in mixed]
     assert jax_stats.get("fallbacks", 0) == 0
     assert stats.get("fallbacks", 0) == 0
+
+
+def test_decode_bytes_equals_tpu_decoder_and_native(mixed, dec,
+                                                   monkeypatch):
+    """``decode_bytes`` on each container alone against the native decoder,
+    and on the smallest container of each kind (FSE, LZVN, RAW, empty)
+    against ``TpuDecoder.decode_bytes`` in interpret mode."""
+    real = pl.pallas_call
+    monkeypatch.setattr(pl, "pallas_call",
+                        lambda *a, **k: real(*a, **{**k, "interpret": True}))
+    nat = native_runtime()
+    smallest: dict = {}
+    for raw, c in mixed:
+        assert dec.decode_bytes(c) == raw == nat.decode_bytes(c)
+        if len(c) < len(smallest.get(c[:4], (None, c + b"."))[1]):
+            smallest[c[:4]] = (raw, c)
+    assert {b"bvx2", b"bvxn", b"bvx-", b"bvx$"} <= set(smallest)
+    ref = TpuDecoder(use_pallas=True, use_native_rebuild=True)
+    for raw, c in smallest.values():
+        assert dec.decode_bytes(c) == ref.decode_bytes(c) == raw
 
 
 @pytest.mark.parametrize("case", ["truncated", "trailing", "bad_magic",

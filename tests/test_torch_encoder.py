@@ -123,8 +123,8 @@ def test_encode_bytes_keeps_the_block_on_a_tie(enc, monkeypatch):
     blocks = TpuEncoder._parse_blocks(
         native_runtime().frontend_blocks(_period13(45_000, 7)))
     monkeypatch.setattr(enc, "_emit_blocks",
-                        lambda flat: [b"%d" % (i % 10) * 7
-                                      for i in range(len(flat))])
+                        lambda flat, *timing: [b"%d" % (i % 10) * 7
+                                               for i in range(len(flat))])
     assert len(blocks) < 10
     assert any(F.period_split_rows(rows) is not None for _, rows, _ in blocks)
     got = enc._emit_best(blocks)

@@ -17,9 +17,11 @@ import pytest
 
 from lzfse_rust_tpu.runtime import native as jax_native
 from lzfse_rust_tpu.spec import container as jax_container
+from lzfse_rust_tpu.spec import match_find as jax_match_find
 from lzfse_rust_tpu_torch.runtime import build
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.spec import container as port_container
+from lzfse_rust_tpu_torch.spec import match_find as port_match_find
 from lzfse_rust_tpu_torch.utils import corpus
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -40,8 +42,8 @@ def _outcome(fn):
 
 def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
     """Every module of the port and chip_smoke.py imported, then a CPU
-    decode and encode of a small seeded batch: no ``lzfse_rust_tpu`` module
-    is loaded afterwards."""
+    decode and encode (with each frontend) of a small seeded batch: no
+    ``lzfse_rust_tpu`` module is loaded afterwards."""
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "import chip_smoke\n"
@@ -52,8 +54,10 @@ def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
             "got = TorchDecoder('cpu').decode_many([c for _, c in pairs])\n"
             "assert got == [r for r, _ in pairs]\n"
             "raws = [r for r, c in pairs if c != corpus.EMPTY]\n"
-            "enc = TorchEncoder('cpu').encode_many(raws)\n"
-            "assert enc == [c for r, c in pairs if c != corpus.EMPTY]\n"
+            "want = [c for r, c in pairs if c != corpus.EMPTY]\n"
+            "assert TorchEncoder('cpu').encode_many(raws) == want\n"
+            "dev = TorchEncoder('cpu', frontend='device')\n"
+            "assert dev.encode_many(raws) == want\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'lzfse_rust_tpu'\n"
             "             or m.startswith('lzfse_rust_tpu.'))\n"
@@ -182,3 +186,49 @@ def test_native_encode_bytes_equals_the_original(kind, natives):
     for size in (0, 100, 5_000, 70_000):
         raw = corpus.make_raw(kind, size, rng)
         assert ours.encode_bytes(raw) == theirs.encode_bytes(raw)
+
+
+@pytest.fixture(scope="module")
+def match_inputs():
+    """Seeded sources for the match finder: words, a source with runs past
+    64 bytes, random bytes and a 3-byte input."""
+    rng = np.random.default_rng(47)
+    vocab = [bytes(rng.integers(97, 110, int(rng.integers(2, 7)),
+                                dtype=np.uint8)) for _ in range(24)]
+    words = b" ".join(vocab[int(i)] for i in rng.integers(0, 24, 3000))
+    block = bytes(rng.integers(0, 256, 500, dtype=np.uint8))
+    return [words, block * 9 + words[:700], corpus.make_raw("html", 9_000, rng),
+            bytes(rng.integers(0, 256, 5_000, dtype=np.uint8)), b"abc"]
+
+
+@pytest.mark.parametrize("vn", [False, True])
+def test_spec_find_matches_equals_the_original(vn, match_inputs):
+    for src in match_inputs:
+        got = port_match_find.find_matches(src, vn)
+        want = jax_match_find.find_matches(src, vn)
+        for field in ("pos", "match_pos", "fwd_len", "back_max"):
+            np.testing.assert_array_equal(getattr(got, field),
+                                          getattr(want, field))
+
+
+@pytest.mark.parametrize("direction", ["forward", "backward"])
+def test_spec_lcp_extension_equals_the_original(direction, match_inputs):
+    """``_lcp_forward`` / ``_lcp_backward`` on seeded position pairs, below
+    and above the 64 rows where the chain rule takes over."""
+    rng = np.random.default_rng(48)
+    for src in match_inputs[:3]:
+        full = np.frombuffer(src, np.uint8)
+        n = len(full)
+        for rows in (40, 900):
+            a = rng.integers(1, n, rows)
+            b = np.maximum(a - rng.integers(1, 600, rows), 0)
+            if direction == "forward":
+                start = np.zeros(rows, np.int64)
+                cap = (n - a).astype(np.int64)
+                args = (full, a, b, start, cap)
+            else:
+                args = (full, a, b, np.minimum(a, b).astype(np.int64))
+            name = f"_lcp_{direction}"
+            got = getattr(port_match_find, name)(*args)
+            want = getattr(jax_match_find, name)(*args)
+            np.testing.assert_array_equal(got, want)

@@ -23,6 +23,7 @@ import torch
 import lzfse_rust_tpu_torch.tools as tools_pkg
 from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
+from lzfse_rust_tpu_torch.tools import bench_match_find as BMF
 from lzfse_rust_tpu_torch.tools import bench_rebuild, bench_stage_split
 from lzfse_rust_tpu_torch.tools import check_corpus
 from lzfse_rust_tpu_torch.tools import check_encoder_corpus, common
@@ -297,6 +298,31 @@ def test_stage_split_summary_rates():
     assert (s["literal_Msym_s"], s["lmd_Msym_s"]) == (2.0, 0.5)
     assert (s["entropy_GBps"], s["total_GBps"], s["upload_GBps"]) == (
         5.0, 4.0, 4.0)
+
+
+def _match_detail(N, windows, scale):
+    return {"N": N, "windows": windows, "slots": N * windows, "sat": 3,
+            "matched": 40, "upload_bytes": 6 * N * windows,
+            "download_bytes": 9 * N * windows, "win_prep_s": 0.004 * scale,
+            "matchfind_s": 0.002 * scale, "arbitrate_s": 0.001 * scale,
+            "upload_ms": 0.5 * scale, "kernel_ms": 0.25 * scale,
+            "download_ms": 0.75 * scale}
+
+
+def test_bench_match_find_summary_takes_the_second_smallest():
+    runs = [[_match_detail(4096, 2, s), _match_detail(1 << 20, 5, s)]
+            for s in (3.0, 1.0, 2.0)]
+    rows = BMF.summarize(runs)
+    assert [(r["N"], r["windows"], r["slots"]) for r in rows] == [
+        (4096, 2, 8192), (1 << 20, 5, 5 << 20)]
+    r = rows[1]
+    assert (r["group_ms"], r["upload_ms"], r["kernel_ms"], r["download_ms"],
+            r["matchfind_ms"], r["arbitrate_ms"]) == pytest.approx(
+        (8.0, 1.0, 0.5, 1.5, 4.0, 2.0))
+    assert r["stage_ms"] == pytest.approx(14.0)
+    assert r["kernel_MBps"] == pytest.approx((5 << 20) / 0.5 / 1e3)
+    assert r["stage_MBps"] == pytest.approx((5 << 20) / 14.0 / 1e3)
+    assert "N 1048576: 5 windows" in BMF.report(r)
 
 
 def test_card_queue_keeps_its_markers_in_its_checkout(tmp_path):

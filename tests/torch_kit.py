@@ -1,8 +1,8 @@
 """Helpers shared by the port's tests: parse corpus containers into FSE
 blocks and build the port's decode kernel arguments from them; split raw
 sources into the native frontend's blocks and stage them as the encode
-kernels take them. Imports no JAX, so the tests that run on a card can
-use it."""
+kernels take them; build match-finder windows and group their positions.
+Imports no JAX, so the tests that run on a card can use it."""
 
 import numpy as np
 import torch
@@ -106,3 +106,44 @@ def encode_rows(blocks, n_cols: int, n_rows: int | None = None) -> dict:
         st["lmd_num"][i] = nr
     st["words"] = st.pop("litw").view("<i4")
     return st
+
+
+def words(rng, n_words: int, vocab: int = 16) -> bytes:
+    """n_words seeded words of 2-6 letters from a vocabulary of ``vocab``,
+    joined by spaces."""
+    vocab_ = [bytes(rng.integers(97, 110, int(rng.integers(2, 7)),
+                                 dtype=np.uint8)) for _ in range(vocab)]
+    return b" ".join(vocab_[int(i)] for i in rng.integers(0, vocab, n_words))
+
+
+def window_rows(N: int, seed: int) -> list:
+    """(bytes, n_real, lo, hi) of one window each: words with a cut
+    payload, a 300-byte block repeated (runs past 64 bytes), a tail that
+    repeats an earlier 40-byte string up to n_real, random bytes, an
+    all-zero row, and n_real 3 and 0."""
+    rng = np.random.default_rng(seed)
+    n = N - 128
+    text = words(rng, N)[:n]
+    block = bytes(rng.integers(0, 256, 300, dtype=np.uint8))
+    head = bytes(rng.integers(0, 256, N // 2, dtype=np.uint8))
+    tail = head + head[100:140]
+    return [(text, n, 57, n - 31),
+            ((block * (N // 300 + 1))[:N - 200], N - 200, 0, N - 200),
+            (tail, len(tail), 5, len(tail)),
+            (bytes(rng.integers(0, 256, n, dtype=np.uint8)), n, 0, N),
+            (bytes(n), n, 0, n),
+            (b"abc", 3, 0, 3),
+            (b"", 0, 0, 0)]
+
+
+def grouped_inputs(rows, N: int, vn: bool, match_group) -> dict:
+    """grouped_compact's numpy arguments, grouped by ``match_group``."""
+    B = len(rows)
+    a = dict(pads=np.zeros((B, N), np.uint8), n_reals=np.zeros(B, np.int32),
+             los=np.zeros(B, np.int32), his=np.zeros(B, np.int32),
+             orders=np.zeros((B, N), np.int32), oks=np.zeros((B, N), np.uint8))
+    for r, (data, n, lo, hi) in enumerate(rows):
+        a["pads"][r, :len(data)] = np.frombuffer(data, np.uint8)
+        a["n_reals"][r], a["los"][r], a["his"][r] = n, lo, hi
+        a["orders"][r], a["oks"][r] = match_group(a["pads"][r], n, vn)
+    return a
