@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode, both encode frontends and the probes once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving decode (host and device rebuild), both encode frontends and the probes once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -24,12 +24,21 @@ Phases, one line each; any failure exits non-zero and prints no result:
    plain PyTorch version bit for bit (decode: every output word, final
    states and positions; encode: every defined push group and the final
    states; the grouped match finder: every output of every window, one
-   launch per window size as the device frontend makes them); each timed
-   with CUDA events;
+   launch per window size as the device frontend makes them; the LZ
+   rebuild: every output byte and ok flag of the batch's flattened
+   containers); each timed with CUDA events;
 6. slice: ``TorchDecoder("cuda").decode_many`` twice (warm-up, timed); every
    output's SHA-256 must equal its raw input's, with no spec-layer fallback
    and both decode kernels launched; a small mixed batch must decode to its
    raw inputs;
+6b. rebuild_device: ``TorchDecoder("cuda", use_native_rebuild=False)
+   .decode_many`` twice on the same batch (warm-up, timed): the flatten and
+   the LZ rebuild kernel (``csrc/lz_rebuild.cu``) on the card; every
+   SHA-256 must match, no fallback, both decode kernels and the rebuild
+   kernel launched; its stage split beside the default path's; then
+   ``TorchDecoder("cuda", use_kernels=False, use_native_rebuild=False)``
+   (the scan path: tables and scans as torch ops) on the small mixed batch,
+   timed;
 7. encode: ``TorchEncoder("cuda").encode_many`` on the batch's raw inputs
    twice (warm-up, timed); every output must equal its corpus container
    (made by the native encoder), with both encode kernels launched;
@@ -40,7 +49,7 @@ Phases, one line each; any failure exits non-zero and prints no result:
    kernels launched; the stage split, the windows per size, the bytes up
    and down and the rate beside the native frontend's; ``encode_bytes`` on
    the largest and a small input;
-9. the kernels' JSON line (all eight, each with its time, its plain
+9. the kernels' JSON line (all nine, each with its time, its plain
    version's time and its bound: the larger of the bytes it must move over
    the card's memory rate and its operations over the card's peak rate,
    counted from this run's inputs), then the result line
@@ -77,6 +86,8 @@ KERNELS = (
 )
 MATCH = ("match_grouped", "lzfse_rust_tpu_torch/csrc/match_find.cu",
          "lzfse_rust_tpu/ops/match_find_tpu.py:194")
+REBUILD = ("lz_rebuild", "lzfse_rust_tpu_torch/csrc/lz_rebuild.cu",
+           "lzfse_rust_tpu/ops/lz_rebuild.py:50")
 PROBES = (
     ("probe_step", "lzfse_rust_tpu_torch/csrc/probes.cu",
      "tools/microbench_step.py:38"),
@@ -100,6 +111,9 @@ OPS_PER_SYMBOL = 5
 # arbitration, and 4 (two shifts, an or, a xor) per 8-byte word compared
 MATCH_OPS_PER_SLOT = 12
 MATCH_OPS_PER_WORD = 4
+# the LZ rebuild: at least a compare, a select and an index computation per
+# output position
+REBUILD_OPS_PER_POSITION = 3
 PROBE_OPS_PER_STEP = {"probe_step": 1, "probe_chain": 32, "probe_tput": 16}
 
 
@@ -325,13 +339,58 @@ def match_kernel(enc, pairs) -> dict:
             "bound_by": bound_by, "library_ms": None}
 
 
+def rebuild_work(args: dict, n_out: int) -> tuple[int, int]:
+    """(bytes, operations) the LZ rebuild needs on these arguments: every
+    input read once (rows, literal pools, offsets, sizes), every output
+    written once (a byte a position and the ok flags)."""
+    n_bytes = _nbytes(*(v for v in args.values() if hasattr(v, "numel")))
+    n_bytes += n_out + args["n_raw"].numel()
+    return n_bytes, REBUILD_OPS_PER_POSITION * n_out
+
+
+def rebuild_kernel(dec, pairs) -> dict:
+    """The LZ rebuild kernel against its plain version on the serving
+    batch's own flattened containers (all of them: the plain version's
+    int64 maps of 134.6 M positions fit the card), timed with CUDA
+    events."""
+    import torch
+    from lzfse_rust_tpu_torch.ops import cuda_rebuild as CR
+    from lzfse_rust_tpu_torch.utils.timing import cuda_ms
+    args = dec.rebuild_args([c for _, c in pairs])
+    got = CR.lz_rebuild(**args)
+    want, plain_ms = _event_ms(lambda: CR.lz_rebuild_ref(**args))
+    same = all(torch.equal(g, w) for g, w in zip(got, want))
+    err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
+              for g, w in zip(got, want))
+    n_ok = int(got[1].sum())
+    del want
+    torch.cuda.empty_cache()
+    ms = cuda_ms(lambda: CR.lz_rebuild(**args), reps=5, warmup=1)
+    n_out = args["n_out"]
+    n_bytes, n_ops = rebuild_work(args, n_out)
+    bound_ms, bound_by = bound(n_bytes, n_ops)
+    phase("kernel", same and err == 0 and n_ok == args["n_raw"].numel(),
+          f"{REBUILD[0]}: {args['n_raw'].numel()} containers ({n_ok} ok), "
+          f"{args['rows'].shape[0]} rows, {args['literals'].numel()} "
+          f"literals, {n_out} output bytes, bit-exact={same}, "
+          f"max_abs_err={err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+          f"bound {bound_ms:.4f} ms ({n_bytes} bytes, {n_ops} ops: "
+          f"{bound_by})")
+    return {"name": REBUILD[0], "route": "cuda", "source": REBUILD[1],
+            "replaces": REBUILD[2], "launches": 0, "max_abs_err": err,
+            "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
+
+
 def reset_launches() -> None:
     """Every kernel's launch count to 0."""
     from lzfse_rust_tpu_torch.ops import (cuda_decode, cuda_encode,
-                                          cuda_probes, match_find)
+                                          cuda_probes, cuda_rebuild,
+                                          match_find)
     cuda_decode.reset_launches()
     cuda_encode.reset_launches()
     cuda_probes.reset_launches()
+    cuda_rebuild.reset_launches()
     match_find.reset_launches()
 
 
@@ -423,7 +482,7 @@ def probes(seed: int) -> list[dict]:
     return rows
 
 
-def slice_run(dec, pairs) -> dict:
+def slice_run(dec, pairs) -> tuple[dict, tuple]:
     import torch
     from lzfse_rust_tpu_torch.ops import cuda_decode as K
     from lzfse_rust_tpu_torch.utils import corpus as CP
@@ -458,7 +517,66 @@ def slice_run(dec, pairs) -> dict:
     got = dec.decode_many([c for _, c in small])
     phase("small", got == [r for r, _ in small],
           f"{len(small)} small mixed containers decode to their raw inputs")
-    return launches
+    return launches, (split, detail, wall)
+
+
+def rebuild_run(pairs, default) -> dict:
+    """``decode_many`` with the flatten and the LZ rebuild on the card, on
+    the serving batch (warm-up, timed), its stage split beside the default
+    path's from this run; then the scan path on the small mixed batch."""
+    import torch
+    from lzfse_rust_tpu_torch import TorchDecoder
+    from lzfse_rust_tpu_torch.ops import cuda_decode as KD
+    from lzfse_rust_tpu_torch.ops import cuda_rebuild as CR
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    dec = TorchDecoder("cuda", use_native_rebuild=False)
+    sources = [c for _, c in pairs]
+    raw_bytes = sum(len(r) for r, _ in pairs)
+    warm: dict = {}
+    dec.decode_many(sources, warm)
+    torch.cuda.reset_peak_memory_stats()
+    stats: dict = {}
+    reset_launches()
+    t = time.perf_counter()
+    outs = dec.decode_many(sources, stats)
+    wall = time.perf_counter() - t
+    launches = {**KD.launches, **CR.launches}
+    bad = [i for i, ((raw, _), out) in enumerate(zip(pairs, outs))
+           if hashlib.sha256(out).digest() != hashlib.sha256(raw).digest()]
+    fallbacks = stats.get("fallbacks", 0) + warm.get("fallbacks", 0)
+    phase("rebuild_device", not bad and fallbacks == 0
+          and all(n > 0 for n in launches.values()),
+          f"{len(outs)} containers, sha mismatches {len(bad)}, fallbacks "
+          f"{fallbacks}, launches {launches}")
+    split = {k: round(v * 1e3, 3) for k, v in stats.items()
+             if isinstance(v, float)}
+    detail = {k: round(v, 3) for k, v in stats["detail_device"].items()}
+    d_split, d_detail, d_wall = default
+    print(f"[rebuild_device] stage split ms {split} (default path, same "
+          f"run: {d_split}); device events ms {detail} (default: "
+          f"{d_detail}); peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    print(f"[rebuild_device] full decode {raw_bytes} bytes in "
+          f"{wall * 1e3:.3f} ms = {raw_bytes / wall / 1e9:.4f} GB/s (default "
+          f"path, same run: {d_wall * 1e3:.3f} ms = "
+          f"{raw_bytes / d_wall / 1e9:.4f} GB/s); output download "
+          f"{raw_bytes / detail['out_download_ms'] / 1e6:.2f} GB/s",
+          flush=True)
+    small = CP.small_batch(seed=1)
+    scan = TorchDecoder("cuda", use_kernels=False, use_native_rebuild=False)
+    before = CR.launches["lz_rebuild"]
+    stats = {}
+    t = time.perf_counter()
+    got = scan.decode_many([c for _, c in small], stats)
+    wall = time.perf_counter() - t
+    phase("scan", got == [r for r, _ in small]
+          and stats.get("fallbacks", 0) == 0
+          and CR.launches["lz_rebuild"] == before + 1,
+          f"use_kernels=False: {len(small)} small mixed containers "
+          f"({sum(len(r) for r, _ in small)} bytes) decode to their raw "
+          f"inputs in {wall * 1e3:.1f} ms; stage split ms "
+          f"{ {k: round(v * 1e3, 1) for k, v in stats.items() if isinstance(v, float)} }")
+    return {"lz_rebuild": launches["lz_rebuild"]}
 
 
 def encode_run(enc, pairs) -> tuple[dict, float]:
@@ -582,8 +700,10 @@ def main() -> int:
         dec = TorchDecoder("cuda")
         enc = TorchEncoder("cuda")
         enc_dev = TorchEncoder("cuda", frontend="device")
-        rows = kernels(dec, enc, pairs) + [match_kernel(enc_dev, pairs)]
-        launches = slice_run(dec, pairs)
+        rows = kernels(dec, enc, pairs) + [match_kernel(enc_dev, pairs),
+                                           rebuild_kernel(dec, pairs)]
+        launches, default = slice_run(dec, pairs)
+        launches.update(rebuild_run(pairs, default))
         enc_launches, native_gbps = encode_run(enc, pairs)
         launches.update(enc_launches)
         launches.update(encode_device_run(enc_dev, pairs, native_gbps))

@@ -26,6 +26,15 @@ Per call:
    check or rebuild status sends the container to the spec layer and
    counts in ``stats["fallbacks"]``.
 
+With ``use_native_rebuild=False`` steps 4-5 stay on the device: the
+kernels' outputs are flattened there into each container's row stream and
+literal pool with its LZVN/RAW parts (``ops/lz_rebuild.flatten_pieces``),
+the rebuild kernel of ``ops/cuda_rebuild.py`` writes the bytes, and only
+the final states, the checks and the output bytes come back. With
+``use_kernels=False`` the JAX decoder's portable path runs instead: the
+Python parse, the decode tables and the stream scans as torch ops
+(``ops/table_build``, ``ops/fse_decode``), then either rebuild.
+
 ``device="cpu"`` runs the kernels' plain versions; it exists for the
 tests. A CUDA device without a card raises: there is no silent CPU path.
 """
@@ -34,14 +43,20 @@ from __future__ import annotations
 
 import ctypes as _ct
 import time
+from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
 
 import numpy as np
 import torch
 
 from ..base import constants as C
-from ..base.errors import BadBlock, DecodeError, PayloadOverflow, PayloadUnderflow
+from ..base.errors import (BadBlock, DecodeError, LzfseError, PayloadOverflow,
+                           PayloadUnderflow)
 from ..ops import cuda_decode as K
+from ..ops import cuda_rebuild as CR
+from ..ops import fse_decode as FD
+from ..ops import lz_rebuild as LR
+from ..ops import table_build as TB
 from ..runtime.build import native_runtime
 from ..spec import container as spec_container
 from ..spec import fse as F
@@ -234,6 +249,70 @@ def download(outs, buf: torch.Tensor | None, cuda: bool):
     return buf, pieces
 
 
+def _stream_ok(lit_fs, lit_fp, lmd_fs, lmd_fp) -> np.ndarray:
+    """Per block (rows in block order): final states at their defaults and
+    no payload underflow, >= 64 bits of pad left (fse_core.rs:132-140 +
+    literals.rs:79-87)."""
+    lit_ok = (lit_fs == 0).all(axis=1) & (lit_fp >= 64)
+    lmd_ok = ((lmd_fs[:, 0] == 0) & (lmd_fs[:, 1] == C.L_STATES)
+              & (lmd_fs[:, 2] == C.L_STATES + C.M_STATES) & (lmd_fp >= 64))
+    return lit_ok & lmd_ok
+
+
+def _spec(sources, ci: int, stats: dict | None) -> bytes:
+    """Container ci through the spec layer (its exact bytes or exception),
+    counted in ``stats["fallbacks"]``."""
+    if stats is not None:
+        stats["fallbacks"] = stats.get("fallbacks", 0) + 1
+    return spec_container.decode_bytes(sources[ci])
+
+
+def _add_ms(stats: dict | None, spans) -> None:
+    """Add each (key, start event, end event)'s CUDA-event milliseconds to
+    ``stats["detail_device"]``."""
+    if stats is None:
+        return
+    det = stats.setdefault("detail_device", {})
+    for key, a, b in spans:
+        det[key] = det.get(key, 0.0) + a.elapsed_time(b)
+
+
+def _walk_parts(src: bytes, sub: np.ndarray) -> list:
+    """A container's walk parts as flatten parts: ``("fse", block)`` for an
+    FSE block, ``("rows", rows, literals)`` for an LZVN block (parsed by
+    ``spec.vn.parse_vn_rows``, which raises on a malformed payload) or a
+    RAW block (one row (n_raw, 0, 0), its body as literals)."""
+    parts = []
+    for kind, a, b, c, _, _ in sub.tolist():
+        if kind == 0:
+            parts.append(("fse", a))
+        elif kind == 2:
+            parts.append(("rows", *V.parse_vn_rows(src[a:a + b], c, b)))
+        else:
+            parts.append(("rows", np.array([[b, 0, 0]], np.int32),
+                          np.frombuffer(src, np.uint8, b, a)))
+    return parts
+
+
+_COPY_CHUNK = 1 << 20
+
+
+def copy_segments(base: int, spans, pool) -> list[bytes]:
+    """New bytes objects holding the host memory at ``base + a`` to
+    ``base + b`` for each (a, b) of ``spans``, copied in 1 MiB pieces by the
+    threads of ``pool`` (``ctypes.memmove`` releases the GIL)."""
+    res, jobs = [], []
+    for a, b in spans:
+        r = _new_bytes(b - a)
+        res.append(r)
+        dst = _bytes_addr(r)
+        for o in range(a, b, _COPY_CHUNK):
+            jobs.append((dst + o - a, base + o, min(_COPY_CHUNK, b - o)))
+    for _ in pool.map(lambda j: _ct.memmove(*j), jobs):
+        pass
+    return res
+
+
 @dataclass
 class _Batch:
     """One call's kernel arguments (device tensors) and the host maps from
@@ -244,6 +323,8 @@ class _Batch:
     sm_n: np.ndarray
     off_l: np.ndarray
     off_m: np.ndarray
+    lit_n: np.ndarray   # per block, in block order: literals, L/M/D rows
+    lmd_n: np.ndarray
     upload: tuple | None = None   # CUDA events around the upload
 
 
@@ -251,7 +332,18 @@ class TorchDecoder:
     """Batched container decoder whose FSE stream decode runs in the CUDA
     kernels of ``ops/cuda_decode.py`` (or their plain versions on CPU)."""
 
-    def __init__(self, device="cuda"):
+    def __init__(self, device="cuda", use_kernels: bool = True,
+                 use_native_rebuild: bool = True):
+        """``use_kernels`` is the counterpart of ``TpuDecoder``'s
+        ``use_pallas``: True decodes the FSE streams in the CUDA kernels of
+        ``ops/cuda_decode.py`` after the native container walk; False runs
+        the portable path, the Python parse with the decode tables and the
+        stream scans as torch ops (``ops/table_build``, ``ops/fse_decode``).
+        ``use_native_rebuild``: True rebuilds the output on the host
+        (``native.flatten_rebuild``); False flattens and rebuilds on the
+        device (``ops/lz_rebuild.flatten_pieces``, then the CUDA kernel of
+        ``ops/cuda_rebuild.py``), so only the output bytes come back. The
+        defaults are the serving path."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -259,11 +351,15 @@ class TorchDecoder:
                                    "but CUDA is not available")
         elif self.device.type != "cpu":
             raise ValueError(f"TorchDecoder: unsupported device {device!r}")
+        self.use_kernels = bool(use_kernels)
+        self.use_native_rebuild = bool(use_native_rebuild)
         self._native = native_runtime()
         self._native.alloc_reuse()  # warm-page reuse for output bytes
         self._stage: torch.Tensor | None = None   # host staging, int32
         self._stage_free = None   # event: the last upload from _stage is done
         self._down: torch.Tensor | None = None    # host download, int32
+        self._out_pin: torch.Tensor | None = None  # pinned output bytes
+        self._pool = None   # threads that copy output bytes out of it
         self._side = None   # CUDA stream of the L/M/D kernel
 
     # -- host buffers ----------------------------------------------------
@@ -291,9 +387,7 @@ class TorchDecoder:
             # exact error semantics: the Python parse raises the precise
             # exception; one that parses clean goes to the spec layer
             _parse_container(sources[ci], ci, [])
-            if stats is not None:
-                stats["fallbacks"] = stats.get("fallbacks", 0) + 1
-            results[ci] = spec_container.decode_bytes(sources[ci])
+            results[ci] = _spec(sources, ci, stats)
         clock.mark("parse")
         batch = self._prep(sources, desc, w16, clock) if len(desc) else None
         if batch is None:
@@ -399,45 +493,48 @@ class TorchDecoder:
                    pos=drows["lmd_pos"], num=drows["lmd_num"],
                    out_off=drows["lmd_out"], n_out=n_lmd_out)
         return _Batch(lit, lmd, sl_n, sm_n, off_l.astype(np.int64),
-                      off_m.astype(np.int64), upload)
+                      off_m.astype(np.int64), lit_n, lmd_n, upload)
+
+    def _launch(self, batch: _Batch):
+        """Enqueue both kernels. Returns their device outputs (literal words,
+        lit states, lit pos, lm, d, lmd states, lmd pos) and, on a card,
+        CUDA events before and after them."""
+        if self.device.type != "cuda":
+            return (*K.decode_literals(**batch.lit),
+                    *K.decode_lmds(**batch.lmd)), None
+        # neither kernel reads the other's output: the L/M/D kernel runs on
+        # a second stream, joined back before anything reads it, so the
+        # kernels take about the longer of the two, not their sum
+        main = torch.cuda.current_stream(self.device)
+        if self._side is None:
+            self._side = torch.cuda.Stream(self.device)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record(main)
+        self._side.wait_stream(main)
+        lit_outs = K.decode_literals(**batch.lit)
+        with torch.cuda.stream(self._side):
+            lmd_outs = K.decode_lmds(**batch.lmd)
+        main.wait_stream(self._side)
+        for t in lmd_outs:
+            t.record_stream(main)
+        ev[1].record(main)
+        return (*lit_outs, *lmd_outs), ev
 
     def _device(self, batch: _Batch, stats: dict | None):
         """Run both kernels and bring their results back. Returns host
         arrays (literal bytes, lm, d, lit states, lit pos, lmd states,
         lmd pos)."""
         cuda = self.device.type == "cuda"
-        if not cuda:
-            outs = (*K.decode_literals(**batch.lit),
-                    *K.decode_lmds(**batch.lmd))
-        else:
-            # neither kernel reads the other's output: the L/M/D kernel runs
-            # on a second stream, joined back before the download, so the
-            # kernels take about the longer of the two, not their sum
-            main = torch.cuda.current_stream(self.device)
-            if self._side is None:
-                self._side = torch.cuda.Stream(self.device)
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record(main)
-            self._side.wait_stream(main)
-            lit_outs = K.decode_literals(**batch.lit)
-            with torch.cuda.stream(self._side):
-                lmd_outs = K.decode_lmds(**batch.lmd)
-            main.wait_stream(self._side)
-            for t in lmd_outs:
-                t.record_stream(main)
-            outs = (*lit_outs, *lmd_outs)
-            ev[1].record(main)
+        outs, ev = self._launch(batch)
         # lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp
         self._down, pieces = download(outs, self._down, cuda)
         if cuda:
+            ev.append(torch.cuda.Event(enable_timing=True))
             ev[2].record()
             ev[2].synchronize()
-            if stats is not None:
-                det = stats.setdefault("detail_device", {})
-                for key, a, b in (("upload_ms", *batch.upload),
-                                  ("kernels_ms", ev[0], ev[1]),
-                                  ("download_ms", ev[1], ev[2])):
-                    det[key] = det.get(key, 0.0) + a.elapsed_time(b)
+            _add_ms(stats, (("upload_ms", *batch.upload),
+                            ("kernels_ms", ev[0], ev[1]),
+                            ("download_ms", ev[1], ev[2])))
         lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp = pieces
         return lit.view(np.uint8), lm, d, lit_fs, lit_fp, lmd_fs, lmd_fp
 
@@ -447,14 +544,9 @@ class TorchDecoder:
         if batch is not None:
             lit_arr, lm_arr, d_arr, lit_fs, lit_fp, lmd_fs, lmd_fp = \
                 self._device(batch, stats)
-            # stream validity (fse_core.rs:132-140 + literals.rs:79-87)
             sl_n, sm_n = batch.sl_n, batch.sm_n
-            lit_ok = (lit_fs[sl_n] == 0).all(axis=1) & (lit_fp[sl_n] >= 64)
-            ms = lmd_fs[sm_n]
-            lmd_ok = ((ms[:, 0] == 0) & (ms[:, 1] == C.L_STATES)
-                      & (ms[:, 2] == C.L_STATES + C.M_STATES)
-                      & (lmd_fp[sm_n] >= 64))
-            fse_ok = lit_ok & lmd_ok
+            fse_ok = _stream_ok(lit_fs[sl_n], lit_fp[sl_n], lmd_fs[sm_n],
+                                lmd_fp[sm_n])
         else:
             fse_ok = np.zeros(0, bool)
             lit_arr = np.zeros(4, np.uint8)
@@ -470,9 +562,7 @@ class TorchDecoder:
             sub = parts[cpo[ci]:cpo[ci + 1]]
             k0 = sub[sub[:, 0] == 0, 1]
             if len(k0) and not fse_ok[k0].all():
-                if stats is not None:
-                    stats["fallbacks"] = stats.get("fallbacks", 0) + 1
-                results[ci] = spec_container.decode_bytes(sources[ci])
+                results[ci] = _spec(sources, ci, stats)
                 continue
             keep_parts.append(sub)
             cont_ids.append(ci)
@@ -506,9 +596,259 @@ class TorchDecoder:
             if status[k] == int(cont_nraw[ci]):
                 results[ci] = out_bytes[k]
             else:
-                if stats is not None:
-                    stats["fallbacks"] = stats.get("fallbacks", 0) + 1
-                results[ci] = spec_container.decode_bytes(sources[ci])
+                results[ci] = _spec(sources, ci, stats)
+        clock.mark("rebuild")
+        return results
+
+    # -- the device rebuild (use_native_rebuild=False) ------------------
+
+    def _dense(self, batch: _Batch | None):
+        """Launch both kernels. Returns (dense, states, events): the FSE
+        blocks' decoded rows and literals on the device with each block's
+        row offset and count and literal byte offset and count, the final
+        stream states and positions gathered into block order, and the
+        kernels' CUDA events (None on the CPU or without a block)."""
+        dev = self.device
+        if batch is None:
+            def z(*shape):
+                return torch.zeros(shape, dtype=torch.int32, device=dev)
+            none = (np.zeros(0, np.int64),) * 2
+            return ((z(0), z(0), torch.zeros(0, dtype=torch.uint8, device=dev),
+                     none, none), (z(0, 4), z(0), z(0, 3), z(0)), None)
+        (lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp), ev = self._launch(batch)
+        sl = torch.from_numpy(batch.sl_n).to(dev).long()
+        sm = torch.from_numpy(batch.sm_n).to(dev).long()
+        dense = (lm, d, lit.view(torch.uint8),
+                 (batch.off_m[batch.sm_n], batch.lmd_n),
+                 (batch.off_l[batch.sl_n] * 4, batch.lit_n))
+        return dense, (lit_fs[sl], lit_fp[sl], lmd_fs[sm], lmd_fp[sm]), ev
+
+    def _flat_args(self, dense, conts: list, n_raw):
+        """Flatten the containers' parts ``conts`` on the device
+        (``ops/lz_rebuild.py`` ``flatten_pieces``). Returns (the
+        ``lz_rebuild`` keyword arguments, the plan, the literals each piece
+        consumes (device), the output offsets (host))."""
+        lm, d, lit_bytes, block_rows, block_lits = dense
+        plan = LR.plan_pieces(conts, block_rows, block_lits, lm.numel(),
+                              lit_bytes.numel())
+        flat = LR.flatten_pieces(lm, d, lit_bytes, plan)
+        consumed = flat.pop("consumed")
+        out_off = np.concatenate(([0], np.cumsum(np.asarray(n_raw, np.int64))))
+        n_out = int(out_off[-1])
+        if n_out >= 2**31:
+            raise ValueError(f"{n_out} output bytes exceed int32 offsets")
+
+        def t(x):
+            return torch.from_numpy(np.asarray(x, np.int32)).to(self.device)
+
+        flat.update(n_raw=t(n_raw), out_off=t(out_off), n_out=n_out)
+        return flat, plan, consumed, out_off
+
+    def _rebuild_on_device(self, sources, results, ids, conts, n_raw, dense,
+                           states, stats, clock: _Clock):
+        """Flatten containers ``ids`` (parts ``conts``, sizes ``n_raw``) and
+        rebuild them on the device, then download the final stream
+        ``states`` with the rebuild's checks, then the outputs of the
+        containers that passed, each into its bytes object. A container
+        fails when a block's stream check fails, a block's rows consume more
+        literals than it holds, or the rebuild's ``ok`` is false: the spec
+        layer decodes it and it counts one fallback."""
+        cuda = self.device.type == "cuda"
+        ev = ([torch.cuda.Event(enable_timing=True) for _ in range(5)]
+              if cuda else None)
+        if cuda:
+            ev[0].record()
+        flat, plan, consumed, out_off = self._flat_args(dense, conts, n_raw)
+        clock.mark("flatten")
+        if cuda:
+            ev[1].record()
+        out, ok = CR.lz_rebuild(**flat)
+        if cuda:
+            ev[2].record()
+        self._down, host = download([*states, consumed.int(), ok.int()],
+                                    self._down, cuda)
+        if cuda:
+            ev[3].record()
+            ev[3].synchronize()
+        lit_fs, lit_fp, lmd_fs, lmd_fp, used, ok_h = host
+        fse = plan.kind == 0
+        bad = (used[fse] > plan.lit_cap[fse]) | ~_stream_ok(
+            lit_fs, lit_fp, lmd_fs, lmd_fp)[plan.block[fse]]
+        good = ok_h.astype(bool)
+        good[np.repeat(np.arange(len(ids)), np.diff(plan.cont_piece_off))
+             [fse][bad]] = False
+        keep = np.flatnonzero(good)
+        spans = [(int(out_off[k]), int(out_off[k + 1])) for k in keep]
+        if cuda:
+            # one pinned copy of the whole output, then host threads copy
+            # each container's bytes into its own bytes object
+            n = out.numel()
+            if self._out_pin is None or self._out_pin.numel() < n:
+                self._out_pin = torch.empty(_round_up(max(n, 1), 8 << 20),
+                                            dtype=torch.uint8,
+                                            pin_memory=True)
+            self._out_pin[:n].copy_(out, non_blocking=True)
+            ev[4].record()
+            ev[4].synchronize()
+            _add_ms(stats, (("flatten_ms", ev[0], ev[1]),
+                            ("rebuild_ms", ev[1], ev[2]),
+                            ("download_ms", ev[2], ev[3]),
+                            ("out_download_ms", ev[3], ev[4])))
+            clock.mark("rebuild")
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(8)
+            outs = copy_segments(self._out_pin.data_ptr(), spans, self._pool)
+        else:
+            outs = [out[a:b].numpy().tobytes() for a, b in spans]
+            clock.mark("rebuild")
+        for k, res in zip(keep, outs):
+            results[ids[k]] = res
+        clock.mark("out_copy")
+        for k in np.flatnonzero(~good):
+            results[ids[k]] = _spec(sources, ids[k], stats)
+        clock.mark("rebuild")
+        return results
+
+    def _back_device(self, sources, results, frame, stats, clock: _Clock):
+        """Device stage, then the flatten and the LZ rebuild on the device:
+        the kernels' outputs never come back to the host."""
+        batch, parts, cpo, cont_nraw, cont_ok = frame
+        dense, states, ev = self._dense(batch)
+        clock.mark("device")
+        ids, conts = [], []
+        for ci in np.flatnonzero(cont_ok).tolist():
+            try:
+                conts.append(_walk_parts(sources[ci],
+                                         parts[cpo[ci]:cpo[ci + 1]]))
+            except LzfseError:   # a malformed LZVN payload
+                results[ci] = _spec(sources, ci, stats)
+                continue
+            ids.append(ci)
+        self._rebuild_on_device(sources, results, ids, conts, cont_nraw[ids],
+                                dense, states, stats, clock)
+        if ev is not None:
+            _add_ms(stats, (("upload_ms", *batch.upload),
+                            ("kernels_ms", ev[0], ev[1])))
+        return results
+
+    # -- the scan path (use_kernels=False) -------------------------------
+
+    def _decode_scan(self, sources, stats, clock: _Clock):
+        """The Python parse, the decode tables and both stream scans as
+        torch ops on the device (``ops/table_build``, ``ops/fse_decode``),
+        then the native or the device rebuild: the JAX decoder's portable
+        path (``decode_many`` with ``use_pallas=False``)."""
+        fse_blocks: list[_FseBlockDesc] = []
+        parsed = [_parse_container(s, i, fse_blocks)
+                  for i, s in enumerate(sources)]
+        clock.mark("parse")
+        dev = self.device
+        nb = len(fse_blocks)
+        lit_num = np.array([b.block.literal.num for b in fse_blocks], np.int64)
+        lmd_num = np.array([b.block.lmd.num for b in fse_blocks], np.int64)
+        # the scans run the batch's largest step count, not the format's cap
+        n_l = int(K.literal_counts(lit_num).max()) if nb else 0
+        n_m = int(lmd_num.max()) if nb else 0
+        w_l = max((len(b.lit_payload) for b in fse_blocks), default=0) + 8
+        w_m = max((len(b.lmd_payload) for b in fse_blocks), default=0) + 8
+        weights = np.zeros((nb, C.N_WEIGHTS), np.int32)
+        litp = np.zeros((nb, w_l), np.uint8)
+        lmdp = np.zeros((nb, w_m), np.uint8)
+        pos = np.zeros((nb, 2), np.int32)
+        lit_states = np.zeros((nb, 4), np.int32)
+        lmd_states = np.zeros((nb, 3), np.int32)
+        for i, b in enumerate(fse_blocks):
+            weights[i] = b.weights
+            litp[i, :len(b.lit_payload)] = np.frombuffer(b.lit_payload,
+                                                         np.uint8)
+            lmdp[i, :len(b.lmd_payload)] = np.frombuffer(b.lmd_payload,
+                                                         np.uint8)
+            pos[i] = (len(b.lit_payload) * 8 - b.block.literal.bits,
+                      len(b.lmd_payload) * 8 - b.block.lmd.bits)
+            lit_states[i] = b.block.literal.state
+            lmd_states[i] = np.add(b.block.lmd.state,
+                                   (0, C.L_STATES, C.L_STATES + C.M_STATES))
+
+        def t(x):
+            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+
+        if nb:
+            v_packed, v_base, u_packed = TB.build_decode_tables(t(weights))
+            literals, lit_fs, lit_fp = FD.decode_literals_batch(
+                u_packed, FD.bytes_to_windows(t(litp)), t(lit_states),
+                t(pos[:, 0]), t(lit_num.astype(np.int32)), n_l)
+            lmds, lmd_fs, lmd_fp = FD.decode_lmds_batch(
+                v_packed, v_base, FD.bytes_to_windows(t(lmdp)),
+                t(lmd_states), t(pos[:, 1]), t(lmd_num.astype(np.int32)), n_m)
+            lmds[:, :, 2] = LR.substitute_distances(lmds[:, :, 2])
+        else:
+            literals = t(np.zeros((0, 0), np.uint8))
+            lmds = t(np.zeros((0, 0, 3), np.int32))
+            lit_fs, lmd_fs = t(lit_states), t(lmd_states)
+            lit_fp = lmd_fp = t(pos[:, 0])
+        clock.mark("prep")
+        results: list = [None] * len(sources)
+        if not self.use_native_rebuild:
+            dense = ((lmds[:, :, 0] | (lmds[:, :, 1] << 16)).reshape(-1),
+                     lmds[:, :, 2].reshape(-1), literals.reshape(-1),
+                     (np.arange(nb) * n_m, lmd_num),
+                     (np.arange(nb) * n_l * 4, lit_num))
+            clock.mark("device")
+            return self._rebuild_on_device(
+                sources, results, list(range(len(sources))),
+                [pc.parts for pc in parsed], [pc.n_raw for pc in parsed],
+                dense, (lit_fs, lit_fp, lmd_fs, lmd_fp), stats, clock)
+
+        # the native flatten + rebuild (the JAX decoder.py:1056-1132)
+        lit_arr = np.ascontiguousarray(literals.cpu().numpy())
+        lmd_arr = np.ascontiguousarray(lmds.cpu().numpy())
+        fse_ok = _stream_ok(lit_fs.cpu().numpy(), lit_fp.cpu().numpy(),
+                            lmd_fs.cpu().numpy(), lmd_fp.cpu().numpy())
+        clock.mark("device")
+        part_rows, cont_ids, out_offs = [], [], [0]
+        cont_off = [0]
+        h_rows, h_lits = [], []
+        h_r = h_l = 0
+        for ci, pc in enumerate(parsed):
+            if not all(fse_ok[p[1]] for p in pc.parts if p[0] == "fse"):
+                results[ci] = _spec(sources, ci, stats)
+                continue
+            for part in pc.parts:
+                if part[0] == "fse":
+                    blk = fse_blocks[part[1]].block
+                    # P[1]/P[4]: the block's row of the lm/d and literal
+                    # arrays
+                    part_rows.append((0, part[1], blk.lmd.num,
+                                      blk.literal.num, part[1], 0))
+                else:
+                    rows, lits = part[1], np.frombuffer(part[2], np.uint8)
+                    part_rows.append((1, h_r, len(rows), h_l, len(lits), 0))
+                    h_rows.append(rows)
+                    h_lits.append(lits)
+                    h_r += len(rows)
+                    h_l += len(lits)
+            cont_ids.append(ci)
+            cont_off.append(len(part_rows))
+            out_offs.append(out_offs[-1] + pc.n_raw)
+        out_bytes = [_new_bytes(out_offs[k + 1] - out_offs[k])
+                     for k in range(len(cont_ids))]
+        out_ptrs = np.fromiter((_bytes_addr(b) for b in out_bytes), np.int64,
+                               len(out_bytes))
+        clock.mark("flatten")
+        status = self._native.flatten_rebuild(
+            (lmd_arr[:, :, 0] | (lmd_arr[:, :, 1] << 16)).reshape(max(nb, 1),
+                                                                 -1),
+            lmd_arr[:, :, 2].reshape(max(nb, 1), -1),
+            lit_arr.reshape(max(nb, 1), -1),
+            np.asarray(part_rows, np.int32).reshape(-1, 6),
+            np.asarray(cont_off, np.int32), np.asarray(out_offs, np.int64),
+            np.ascontiguousarray(np.concatenate(h_rows), np.int32)
+            if h_rows else np.zeros((1, 3), np.int32),
+            np.concatenate(h_lits) if h_lits else np.zeros(1, np.uint8),
+            np.zeros(1, np.uint8), out_ptrs=out_ptrs)
+        for k, ci in enumerate(cont_ids):
+            results[ci] = (out_bytes[k] if status[k] == parsed[ci].n_raw
+                           else _spec(sources, ci, stats))
         clock.mark("rebuild")
         return results
 
@@ -520,18 +860,23 @@ class TorchDecoder:
 
         ``stats``, when given, receives wall-clock seconds per stage
         (``parse``, ``prep``, ``device``, ``flatten``, ``rebuild``), the
-        prep sub-stages under ``detail_prep``, on a card the CUDA-event
-        milliseconds of the upload, the kernels and the download under
-        ``detail_device``, and the count of spec-layer ``fallbacks``.
-        Not re-entrant: the staging buffers belong to the decoder."""
+        prep sub-stages under ``detail_prep`` (kernel path), on a card the
+        CUDA-event milliseconds under ``detail_device`` (the upload, the
+        kernels and the download; with the device rebuild also the flatten,
+        the rebuild and the output bytes' download, ``out_download_ms``),
+        and the count of spec-layer ``fallbacks``. Not re-entrant: the
+        staging buffers belong to the decoder."""
         clock = _Clock(stats)
+        if not self.use_kernels:
+            return self._decode_scan(sources, stats, clock)
         results, frame = self._front(sources, stats, clock)
         if stats is not None:
             det = {k: stats.pop(k) for k in list(stats)
                    if k.startswith("prep_")}
             stats["prep"] = stats.get("prep", 0.0) + sum(det.values())
             stats["detail_prep"] = det
-        return self._back(sources, results, frame, stats, clock)
+        back = self._back if self.use_native_rebuild else self._back_device
+        return back(sources, results, frame, stats, clock)
 
     def decode_bytes(self, src: bytes) -> bytes:
         """Decode one container: ``decode_many([src])[0]``."""
@@ -545,3 +890,26 @@ class TorchDecoder:
         if batch is None:
             raise ValueError("the batch holds no FSE block")
         return batch.lit, batch.lmd
+
+    def flatten_inputs(self, sources: list[bytes]):
+        """What the device flatten of ``decode_many`` with
+        ``use_native_rebuild=False`` takes, for every container the walk
+        accepts: (dense, parts, sizes), the decode kernels' dense outputs
+        on this decoder's device with the blocks' offsets and counts, each
+        container's flatten parts, and their sizes (``_flat_args``'s
+        arguments)."""
+        _, (batch, parts, cpo, cont_nraw, cont_ok) = self._front(
+            sources, None, _Clock(None))
+        dense, _, _ = self._dense(batch)
+        ids = np.flatnonzero(cont_ok).tolist()
+        conts = [_walk_parts(sources[ci], parts[cpo[ci]:cpo[ci + 1]])
+                 for ci in ids]
+        return dense, conts, cont_nraw[ids]
+
+    def rebuild_args(self, sources: list[bytes]) -> dict:
+        """The LZ rebuild's arguments for a batch, on this decoder's device:
+        the ``ops/cuda_rebuild.py`` ``lz_rebuild`` keyword arguments that
+        ``decode_many`` with ``use_native_rebuild=False`` builds (the kernel
+        path's decoded rows, flattened on the device), for every container
+        the walk accepts."""
+        return self._flat_args(*self.flatten_inputs(sources))[0]

@@ -10,9 +10,9 @@ is the copy ``TorchDecoder`` makes: the pinned host staging buffer
 ``non_blocking`` copy. The literal and L/M/D kernels (``csrc/fse_decode.cu``)
 run on the inputs ``decode_many`` builds, decode tables included
 (``native.build_tables3_batch`` on the host). Each stage is the mean of 10
-runs after 2 warm-ups. The JAX tools also timed the device decode-table
-build (``build_decode_tables_v3``); the port has none yet (ROADMAP Queue 1
-item 7), so the entropy stage here is the two kernels alone. Prints symbols
+runs after 2 warm-ups. The entropy stage here is the two kernels alone;
+``bench_entropy_decode`` times them with the device decode-table build
+(``build_decode_tables_v3``), as the JAX tool did. Prints symbols
 per second of each kernel and raw bytes of the batch per second of the
 entropy stage and of the whole device stage; the last line is one JSON
 object.

@@ -46,6 +46,7 @@ want multisym "${ARGS[@]}"    && run multisym 300 microbench_step --multisym
 want vpu "${ARGS[@]}"         && run vpu 300 microbench_vpu
 # 3. decode kernels and stages
 want split "${ARGS[@]}"       && run split 300 bench_stage_split
+want entropy "${ARGS[@]}"     && run entropy 300 bench_entropy_decode
 want step_probe "${ARGS[@]}"  && run step_probe 600 decode_step_probe
 want profile "${ARGS[@]}"     && run profile 600 profile_device_stages
 want upload "${ARGS[@]}"      && run upload 300 microbench_upload

@@ -12,13 +12,16 @@ from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
 from lzfse_rust_tpu_torch.ops import cuda_encode as KE
 from lzfse_rust_tpu_torch.ops import cuda_probes as P
+from lzfse_rust_tpu_torch.ops import cuda_rebuild as CR
 from lzfse_rust_tpu_torch.ops import match_find as MF
+from lzfse_rust_tpu_torch.ops import table_build as TB
 from lzfse_rust_tpu_torch.ops.fse_encode import build_encode_tables
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.tools import microbench_step as PS
 from lzfse_rust_tpu_torch.utils import corpus
-from torch_kit import (blocks_of, encode_blocks, encode_rows, grouped_inputs,
-                       port_args, window_rows, words)
+from torch_kit import (REBUILD_CASES, blocks_of, encode_blocks, encode_rows,
+                       grouped_inputs, port_args, rebuild_case, window_rows,
+                       words)
 
 
 @pytest.fixture(autouse=True)
@@ -453,3 +456,190 @@ def test_cuda_probe_kernels_equal_plain_versions(kernel, body):
         torch.cuda.synchronize()
         assert P.launches[kernel] == before + 1
         assert torch.equal(got, ref(body, *args, n)), (kernel, body)
+
+
+def _rebuild_on_card(args: dict):
+    """The rebuild kernel against its plain version on the card (out and
+    ok, every byte); the plain version is never taken for CUDA tensors."""
+    args = {k: v.cuda() if torch.is_tensor(v) else v for k, v in args.items()}
+    before = CR.launches["lz_rebuild"]
+    out, ok = CR.lz_rebuild(**args)
+    torch.cuda.synchronize()
+    assert CR.launches["lz_rebuild"] == before + 1
+    want_out, want_ok = CR.lz_rebuild_ref(**args)
+    assert torch.equal(ok, want_ok)
+    assert torch.equal(out, want_out)
+    return out.cpu(), ok.cpu()
+
+
+def _flat(containers):
+    """lz_rebuild arguments (CPU) for containers given as (literals bytes,
+    rows (n, 3), n_raw, segment length)."""
+    lit = np.concatenate([np.frombuffer(c[0], np.uint8) for c in containers])
+    rows = np.concatenate([np.asarray(c[1], np.int32).reshape(-1, 3)
+                           for c in containers])
+
+    def off(x):
+        return torch.from_numpy(np.concatenate(([0], np.cumsum(x)))
+                                .astype(np.int32))
+
+    return dict(literals=torch.from_numpy(lit.copy()),
+                lit_off=off([len(c[0]) for c in containers]),
+                rows=torch.from_numpy(rows),
+                row_off=off([len(np.asarray(c[1]).reshape(-1, 3))
+                             for c in containers]),
+                n_raw=torch.tensor([c[2] for c in containers],
+                                   dtype=torch.int32),
+                out_off=off([c[3] for c in containers]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", REBUILD_CASES)
+def test_cuda_rebuild_equals_plain_on_seeded_batches(name):
+    lits, rows, n_raw, n_out = rebuild_case(name, 71)
+    _rebuild_on_card(CR.from_jax_rebuild_args(lits, rows, n_raw, n_out))
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_4mib_d1_run_and_raw_row():
+    """A d = 1 run of 4 MiB after one literal (22 rounds), and a single RAW
+    row of 4 MiB, in one batch."""
+    n = 4 << 20
+    body = bytes(np.random.default_rng(72).integers(0, 256, n,
+                                                    dtype=np.uint8))
+    out, ok = _rebuild_on_card(_flat([
+        (b"\x07", [[1, n - 1, 1]], n, n),
+        (body, [[n, 0, 0]], n, n)]))
+    assert ok.all()
+    assert bool((out[:n] == 7).all()) and out[n:].numpy().tobytes() == body
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_d_at_m_and_m_minus_1_every_row():
+    rng = np.random.default_rng(73)
+    conts = []
+    for shift in (0, 1):
+        rows, made = [], 0
+        for _ in range(400):
+            m = int(rng.integers(2, 70))
+            rows.append([1, m, min(m - shift, made + 1)])
+            made += 1 + m
+        conts.append((bytes(rng.integers(0, 256, 400, dtype=np.uint8)),
+                      rows, made, made))
+    out, ok = _rebuild_on_card(_flat(conts))
+    assert ok.all()
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_empty_and_invalid_containers():
+    """Empty containers (no rows, with and without an output segment or a
+    pool), one container alone (B = 1), and invalid rows: d = 0 and d < 0
+    with m > 0, d past the bytes made, more literals than the pool, a total
+    off n_raw, l or m past int16."""
+    conts = [(b"", [], 0, 0), (b"abc", [], 0, 5), (b"", [[0, 0, 0]], 0, 3),
+             (b"xy", [[2, 4, 0]], 6, 6), (b"xy", [[2, 4, -3]], 6, 6),
+             (b"xy", [[2, 4, 3]], 6, 6), (b"xy", [[3, 1, 1]], 4, 4),
+             (b"xyz", [[3, 2, 1]], 6, 6), (b"q" * 70000, [[70000, 70000, 7]],
+                                           140000, 140000)]
+    out, ok = _rebuild_on_card(_flat(conts))
+    assert ok.tolist() == [True] * 3 + [False] * 5 + [True]
+    _rebuild_on_card(_flat(conts[-1:]))
+    _rebuild_on_card(_flat([(b"ab", [[2, 9, 1]], 11, 11)]))
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_more_blocks_than_a_wave():
+    """Many containers of random sizes: more CUDA blocks than one launch's
+    grid, so the grid-stride loops run several times."""
+    rng = np.random.default_rng(74)
+    conts = []
+    for c in range(300):
+        rows, made, used = [], 0, 0
+        for _ in range(int(rng.integers(0, 60))):
+            l = int(rng.integers(0, 30)) if made else int(rng.integers(1, 30))
+            m = int(rng.integers(0, 3000))
+            d = int(rng.integers(1, made + l + 1))
+            rows.append([l, m, d])
+            made, used = made + l + m, used + l
+        conts.append((bytes(rng.integers(0, 256, used, dtype=np.uint8)),
+                      rows, made, made))
+    assert sum(c[3] for c in conts) > 132 * 16 * 256
+    out, ok = _rebuild_on_card(_flat(conts))
+    assert ok.all()
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_raises_at_2_31_output_positions():
+    """An output total of 2**31 positions or more raises before anything
+    is allocated or launched, whether the caller passes the total or the
+    wrapper reads it from out_off."""
+    args = {k: v.cuda() for k, v in _flat([(b"a", [[1, 0, 0]], 1, 1)] * 2)
+            .items()}
+    before = CR.launches["lz_rebuild"]
+    for last in (2**31 - 1, 2**31 - 2):
+        args["out_off"] = torch.tensor([0, 1, last], dtype=torch.int32,
+                                       device="cuda")
+        with pytest.raises(ValueError, match="2\\*\\*31"):
+            CR.lz_rebuild(**args, n_out=last + 2)
+    with pytest.raises(ValueError, match="2\\*\\*31"):
+        CR.lz_rebuild(**args, n_out=2**31)
+    assert CR.launches["lz_rebuild"] == before
+
+
+@pytest.mark.cuda
+def test_cuda_decoder_device_rebuild_end_to_end():
+    """On a card: use_native_rebuild=False runs both decode kernels and the
+    rebuild kernel, and its flatten equals the CPU decoder's."""
+    mixed = corpus.small_batch(seed=21, n_fse=5, lo=3_000, hi=16_000)
+    sources = [c for _, c in mixed]
+    dec = TorchDecoder("cuda", use_native_rebuild=False)
+    before = {**K.launches, **CR.launches}
+    stats: dict = {}
+    assert dec.decode_many(sources, stats) == [r for r, _ in mixed]
+    assert stats.get("fallbacks", 0) == 0
+    after = {**K.launches, **CR.launches}
+    assert all(after[k] == before[k] + 1 for k in before)
+    assert {"upload_ms", "kernels_ms", "flatten_ms", "rebuild_ms",
+            "download_ms", "out_download_ms"} == set(stats["detail_device"])
+    got = dec.rebuild_args(sources)
+    want = TorchDecoder("cpu", use_native_rebuild=False).rebuild_args(sources)
+    assert got.keys() == want.keys()
+    for k in want:
+        if torch.is_tensor(want[k]):
+            assert torch.equal(got[k].cpu(), want[k]), k
+        else:
+            assert got[k] == want[k], k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("native", [True, False])
+def test_cuda_decoder_scan_path(native):
+    """use_kernels=False on a card: tables and scans as torch ops on the
+    device, then either rebuild."""
+    mixed = corpus.small_batch(seed=24, n_fse=2, lo=2_000, hi=5_000)
+    dec = TorchDecoder("cuda", use_kernels=False, use_native_rebuild=native)
+    before = dict(CR.launches)
+    stats: dict = {}
+    assert dec.decode_many([c for _, c in mixed], stats) == [
+        r for r, _ in mixed]
+    assert stats.get("fallbacks", 0) == 0
+    assert CR.launches["lz_rebuild"] == before["lz_rebuild"] + (not native)
+
+
+@pytest.mark.cuda
+def test_cuda_table_build_equals_native():
+    """The device table build (torch ops on the card) equals the native
+    build_tables3_batch on corpus weights and hand-built latch weights."""
+    ws = [d.weights for d in blocks_of(corpus.small_batch(seed=12, n_fse=6))]
+    w = np.zeros(360, np.int64)
+    w[[0, 20, 40, 41, 104]] = (1, 64, 100, 50, 7)
+    w16 = np.ascontiguousarray(np.stack(ws + [w, w * 0]), np.uint16)
+    nb = len(w16)
+    v, u3, tot = (np.zeros((nb, 384), np.int32), np.zeros((nb, 384), np.int32),
+                  np.zeros(nb, np.int32))
+    ident = np.arange(nb, dtype=np.int32)
+    native_runtime().build_tables3_batch(w16, ident, ident, v, u3, tot)
+    got = TB.build_decode_tables_v3(torch.from_numpy(w16.astype(np.int32))
+                                    .cuda())
+    for g, want in zip(got, (v, u3, tot)):
+        assert np.array_equal(g.cpu().numpy(), want)

@@ -42,7 +42,8 @@ def _outcome(fn):
 
 def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
     """Every module of the port and chip_smoke.py imported, then a CPU
-    decode and encode (with each frontend) of a small seeded batch: no
+    decode (with each ``use_kernels`` / ``use_native_rebuild`` choice) and
+    encode (with each frontend) of a small seeded batch: no
     ``lzfse_rust_tpu`` module is loaded afterwards."""
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
@@ -53,6 +54,11 @@ def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
             "hi=40_000)\n"
             "got = TorchDecoder('cpu').decode_many([c for _, c in pairs])\n"
             "assert got == [r for r, _ in pairs]\n"
+            "for uk, nr in ((True, False), (False, True), (False, False)):\n"
+            "    dec = TorchDecoder('cpu', use_kernels=uk,\n"
+            "                       use_native_rebuild=nr)\n"
+            "    got = dec.decode_many([c for _, c in pairs])\n"
+            "    assert got == [r for r, _ in pairs], (uk, nr)\n"
             "raws = [r for r, c in pairs if c != corpus.EMPTY]\n"
             "want = [c for r, c in pairs if c != corpus.EMPTY]\n"
             "assert TorchEncoder('cpu').encode_many(raws) == want\n"

@@ -147,3 +147,60 @@ def grouped_inputs(rows, N: int, vn: bool, match_group) -> dict:
         a["n_reals"][r], a["los"][r], a["his"][r] = n, lo, hi
         a["orders"][r], a["oks"][r] = match_group(a["pads"][r], n, vn)
     return a
+
+
+REBUILD_CASES = ("overlap", "d1_runs", "d_eq_m", "padding", "empty",
+                 "bad_distance", "too_many_literals", "total_mismatch")
+
+
+def rebuild_case(name: str, seed: int, B: int = 6, R: int = 24, L: int = 96,
+                 n_out: int = 1024):
+    """Seeded ``lz_rebuild_batch`` arguments (numpy, the JAX padded layout):
+    (literals (B, L) uint8, rows (B, R, 3) int32, n_raw (B,) int32, n_out).
+
+    Every case has valid containers of rows with self-overlapping matches
+    (d < m) and its own feature: ``d1_runs`` long d = 1 runs, ``d_eq_m`` d =
+    m or m - 1 at every match row, ``padding`` mostly padding rows,
+    ``empty`` containers without rows; and one broken container:
+    ``bad_distance`` a d past the bytes made so far (and a d = 0 match),
+    ``too_many_literals`` rows that consume more literals than L,
+    ``total_mismatch`` an n_raw one off the rows' total."""
+    rng = np.random.default_rng(seed)
+    lits = rng.integers(0, 256, (B, L), dtype=np.uint8)
+    rows = np.zeros((B, R, 3), np.int32)
+    n_raw = np.zeros(B, np.int32)
+    for b in range(B):
+        n_rows = int(rng.integers(1, 4 if name == "padding" else R + 1))
+        if name == "empty" and b % 2 == 0:
+            n_rows = 0
+        out = used = 0
+        for r in range(n_rows):
+            l = min(int(rng.integers(0 if out else 1, 8)), L - used)
+            made = out + l
+            m = int(rng.integers(3, 40)) if made else 0
+            if name == "d1_runs" and made:
+                m, d = int(rng.integers(100, 300)), 1
+            elif name == "d_eq_m" and made:
+                m = min(m, made + 1)
+                d = m if m <= made else m - 1
+                d -= int(rng.integers(0, 2)) if d > 1 else 0
+            else:
+                d = int(rng.integers(1, min(made, m) + 1)) if made else 0
+            if made + m > n_out:
+                break
+            rows[b, r] = (l, m, d)
+            out, used = made + m, used + l
+        n_raw[b] = out
+    k = B // 2
+    if name == "bad_distance":
+        rows[k, 0] = (2, 5, 3)
+        rows[k + 1, 1, 2] = 0
+        rows[k + 1, 1, 1] = max(rows[k + 1, 1, 1], 1)
+        n_raw[k] = rows[k, :, :2].sum()
+        n_raw[k + 1] = rows[k + 1, :, :2].sum()
+    elif name == "too_many_literals":
+        rows[k, 0, 0] += L
+        n_raw[k] = rows[k, :, :2].sum()
+    elif name == "total_mismatch":
+        n_raw[k] += 1
+    return lits, rows, n_raw, n_out
