@@ -23,10 +23,12 @@ Phases, one line each; any failure exits non-zero and prints no result:
 5. kernels: on the batch's own kernel inputs each CUDA kernel must equal its
    plain PyTorch version bit for bit (decode: every output word, final
    states and positions; encode: every defined push group and the final
-   states; the grouped match finder: every output of every window, one
-   launch per window size as the device frontend makes them; the LZ
-   rebuild: every output byte and ok flag of the batch's flattened
-   containers); each timed with CUDA events;
+   states; the grouped match finder: every compacted row and offset of
+   every window, one launch per window size as the device frontend makes
+   them; the LZ rebuild: every output byte and ok flag of the batch's
+   flattened containers, with the open positions per round beside the plain
+   version's); each timed with CUDA events, the two redesigned kernels
+   beside their earlier designs' times, with registers and spills;
 6. slice: ``TorchDecoder("cuda").decode_many`` twice (warm-up, timed); every
    output's SHA-256 must equal its raw input's, with no spec-layer fallback
    and both decode kernels launched; a small mixed batch must decode to its
@@ -111,6 +113,13 @@ OPS_PER_SYMBOL = 5
 # arbitration, and 4 (two shifts, an or, a xor) per 8-byte word compared
 MATCH_OPS_PER_SLOT = 12
 MATCH_OPS_PER_WORD = 4
+# the earlier designs of the two kernels redesigned since, as their own
+# tools timed them at commit 7e245da on the H100 80GB HBM3 at 700 W, in the
+# same call as the redesigns (bench_rebuild, bench_match_find): lz_rebuild's
+# kernel, and match_grouped's six launches with their full outputs (47 bytes
+# a slot) plus the download of every slot's key and winner (its gather of
+# the saturated slots' columns not counted), printed beside this run's times
+EARLIER_MS = {"lz_rebuild": 9.813, "match_grouped": 8.969 + 43.622}
 # the LZ rebuild: at least a compare, a select and an index computation per
 # output position
 REBUILD_OPS_PER_POSITION = 3
@@ -284,24 +293,28 @@ def kernels(dec, enc, pairs) -> list[dict]:
     return rows
 
 
-def match_work(args: dict, outs) -> tuple[int, int]:
-    """(bytes, operations) the grouped match finder needs on these
-    arguments: every input read once, every output written once; per slot
-    the arbitration, and per set candidate bit the 8-byte words compared
-    up to the first difference (from the LCPs found)."""
-    import torch
-    lcps = outs[4]
-    words = torch.where(outs[3] >= 0, (lcps.clamp(0, 63) >> 3) + 1, 0)
+def match_work(args: dict, rows, full) -> tuple[int, int]:
+    """(bytes, operations) the grouped match finder with its compaction
+    needs on these arguments: every input read once, the compacted rows and
+    the offsets written once (``rows``, what ``match_rows`` returns); per
+    slot the arbitration, and per set candidate bit the 8-byte words
+    compared up to the first difference (from the LCPs of ``full``, the
+    plain ``grouped_compact_ref``'s outputs). The same work whichever way
+    it is done: the earlier design wrote every slot's outputs and left the
+    compaction to a gather and the host."""
+    cands, lcps = full[3], full[4]
+    words = ((lcps.clamp(0, 63) >> 3) + 1)[cands >= 0]
     n_ops = (MATCH_OPS_PER_SLOT * args["pads"].numel()
              + MATCH_OPS_PER_WORD * int(words.sum()))
-    return _nbytes(*args.values(), *outs), n_ops
+    return _nbytes(*args.values(), *rows), n_ops
 
 
 def match_kernel(enc, pairs) -> dict:
     """The grouped match kernel against its plain version on every window
     of the batch's raw inputs, one launch per window size, as the device
     frontend launches it (the plain version takes one window at a time, so
-    its (N, 64) byte windows fit the card); timed with CUDA events."""
+    its (N, 64) byte windows fit the card); timed with CUDA events, the
+    kernel with the read of its totals."""
     import torch
     from lzfse_rust_tpu_torch.ops import match_find as MF
     from lzfse_rust_tpu_torch.utils.timing import cuda_ms
@@ -309,30 +322,38 @@ def match_kernel(enc, pairs) -> dict:
     wins = enc.windows(raws)
     ms = plain_ms = 0.0
     err, same, n_bytes, n_ops, slots = 0, True, 0, 0, 0
+    n_m = n_s = 0
     for args in enc.match_args(raws, wins):
-        got = MF.grouped_compact(**args, vn=False)
-        want, p_ms = _event_ms(lambda: MF.grouped_compact_ref(**args,
-                                                              vn=False))
-        eq = [torch.equal(g, w) for g, w in zip(got, want)]
+        got = MF.match_rows(**args, vn=False)
+        want, p_ms = _event_ms(lambda: MF.match_rows_ref(**args, vn=False))
+        eq = [g.shape == w.shape and torch.equal(g, w)
+              for g, w in zip(got, want)]
         same &= all(eq)
-        # the difference is taken only where they differ: the largest
-        # outputs hold about 5 GB
         err = max([err] + [int((g.long() - w.long()).abs().max())
+                           if g.shape == w.shape and g.numel() else -1
                            for g, w, e in zip(got, want, eq) if not e])
-        ms += cuda_ms(lambda: MF.grouped_compact(**args, vn=False), reps=5,
+        ms += cuda_ms(lambda: MF.match_rows(**args, vn=False), reps=5,
                       warmup=1)
         plain_ms += p_ms
-        b, o = match_work(args, got)
+        full = MF.grouped_compact_ref(**args, vn=False)
+        b, o = match_work(args, got, full)
         n_bytes, n_ops = n_bytes + b, n_ops + o
         slots += args["pads"].numel()
-        del got, want
+        n_m += got[1].shape[0]
+        n_s += got[3].shape[0]
+        del got, want, full
     bound_ms, bound_by = bound(n_bytes, n_ops)
     sizes = sorted({w[4] for w in wins})
+    attrs = MF.kernel_attrs()
     phase("kernel", same and err == 0,
-          f"{MATCH[0]}: {len(wins)} windows ({slots} slots, sizes {sizes}), "
-          f"bit-exact={same}, max_abs_err={err}, kernel {ms:.4f} ms, plain "
-          f"{plain_ms:.1f} ms, bound {bound_ms:.4f} ms ({n_bytes} bytes, "
-          f"{n_ops} ops: {bound_by})")
+          f"{MATCH[0]}: {len(wins)} windows ({slots} slots, sizes {sizes}; "
+          f"{n_m} matched, {n_s} saturated rows), bit-exact={same}, "
+          f"max_abs_err={err}, kernel with compaction {ms:.4f} ms (earlier "
+          f"design: kernel plus download and gather "
+          f"{EARLIER_MS[MATCH[0]]:.4f} ms), plain {plain_ms:.1f} ms, bound "
+          f"{bound_ms:.4f} ms ({n_bytes} bytes, {n_ops} ops: {bound_by}); "
+          f"{attrs['registers']} registers, {attrs['local_bytes']} local "
+          f"(spill) bytes, {attrs['blocks_per_sm']} blocks an SM")
     return {"name": MATCH[0], "route": "cuda", "source": MATCH[1],
             "replaces": MATCH[2], "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -357,25 +378,39 @@ def rebuild_kernel(dec, pairs) -> dict:
     from lzfse_rust_tpu_torch.ops import cuda_rebuild as CR
     from lzfse_rust_tpu_torch.utils.timing import cuda_ms
     args = dec.rebuild_args([c for _, c in pairs])
-    got = CR.lz_rebuild(**args)
+    after: dict = {}
+    got = CR.lz_rebuild(**args, detail=after)
     want, plain_ms = _event_ms(lambda: CR.lz_rebuild_ref(**args))
     same = all(torch.equal(g, w) for g, w in zip(got, want))
     err = max(int((g.int() - w.int()).abs().max()) if g.numel() else 0
               for g, w in zip(got, want))
     n_ok = int(got[1].sum())
     del want
+    before: dict = {}
+    CR.lz_rebuild_ref(**args, detail=before)
     torch.cuda.empty_cache()
+    print(f"[kernel] {REBUILD[0]}: positions still pointing at a parent, "
+          f"before the first round and after each: the kernel "
+          f"(in-row chains folded, in-tile links resolved) "
+          f"{after['unresolved']}, {len(after['unresolved']) - 1} rounds "
+          f"with work; plain pointer doubling over the whole map "
+          f"{before['unresolved']}, {len(before['unresolved']) - 1} rounds",
+          flush=True)
     ms = cuda_ms(lambda: CR.lz_rebuild(**args), reps=5, warmup=1)
     n_out = args["n_out"]
     n_bytes, n_ops = rebuild_work(args, n_out)
     bound_ms, bound_by = bound(n_bytes, n_ops)
+    attrs = "; ".join(f"{k} {a['registers']} registers, {a['local_bytes']} "
+                      f"local (spill) bytes, {a['blocks_per_sm']} blocks an "
+                      f"SM" for k, a in CR.kernel_attrs().items())
     phase("kernel", same and err == 0 and n_ok == args["n_raw"].numel(),
           f"{REBUILD[0]}: {args['n_raw'].numel()} containers ({n_ok} ok), "
           f"{args['rows'].shape[0]} rows, {args['literals'].numel()} "
           f"literals, {n_out} output bytes, bit-exact={same}, "
-          f"max_abs_err={err}, kernel {ms:.4f} ms, plain {plain_ms:.1f} ms, "
+          f"max_abs_err={err}, kernel {ms:.4f} ms (earlier design "
+          f"{EARLIER_MS[REBUILD[0]]:.4f} ms), plain {plain_ms:.1f} ms, "
           f"bound {bound_ms:.4f} ms ({n_bytes} bytes, {n_ops} ops: "
-          f"{bound_by})")
+          f"{bound_by}); {attrs}")
     return {"name": REBUILD[0], "route": "cuda", "source": REBUILD[1],
             "replaces": REBUILD[2], "launches": 0, "max_abs_err": err,
             "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
@@ -660,11 +695,16 @@ def encode_device_run(enc, pairs, native_gbps: float) -> dict:
     print(f"[encode_device] stage split ms {split}; match finder events ms "
           f"{match_dev}; emission events ms {dev}; peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**20:.1f} MiB", flush=True)
+    n_slots = sum(d["slots"] for d in det)
+    n_sat = sum(d["sat"] for d in det)
+    n_mat = sum(d["matched"] for d in det)
     print(f"[encode_device] windows per size "
-          f"{ {d['N']: d['windows'] for d in det} }; slots "
-          f"{sum(d['slots'] for d in det)}, saturated "
-          f"{sum(d['sat'] for d in det)}, matched "
-          f"{sum(d['matched'] for d in det)}", flush=True)
+          f"{ {d['N']: d['windows'] for d in det} }; slots {n_slots}, "
+          f"saturated {n_sat} ({n_sat / n_slots:.4%}), matched {n_mat} "
+          f"({n_mat / n_slots:.4%}); match finder upload / kernel with "
+          f"compaction / download ms {match_dev['upload_ms']} / "
+          f"{match_dev['kernel_ms']} / {match_dev['download_ms']}",
+          flush=True)
     for d in det:
         print(f"[encode_device] N {d['N']}: {d['windows']} windows, up "
               f"{d['upload_bytes']} bytes in {d['upload_ms']:.3f} ms, kernel "

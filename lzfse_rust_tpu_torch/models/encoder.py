@@ -46,9 +46,9 @@ and emitted as above. ``encode_many`` runs, per stage:
    groups each window's positions by hash bucket on a host thread pool,
    into pinned buffers;
 3. matchfind: per N, one upload of the windows, one launch of the grouped
-   match kernel (``ops/match_find.grouped_compact``), the download of the
-   keys and best candidates, and the gather of the saturated slots'
-   candidate columns (``take_sat_cols``);
+   match kernel (``ops/match_find.match_rows``), which compacts the
+   matched slots' winners and the saturated slots' candidate columns on
+   the device, and one download of those rows;
 4. arbitrate: saturated slots are re-extended exactly on the host
    (``_arbitrate_window``); matched slots come from the download;
 5. merge: per source, the windows' rows are joined, extended backwards
@@ -490,7 +490,7 @@ class TorchEncoder:
         return self._kwargs(self._upload(pool, nb))
 
     def match_args(self, sources: list[bytes], wins: list) -> list[dict]:
-        """``grouped_compact``'s arguments (all but ``vn``) for the windows
+        """``match_rows``'s arguments (all but ``vn``) for the windows
         ``wins`` (a subset of ``windows(sources)``), one dict per window
         size N in ascending order, on this encoder's device, as the device
         frontend passes them (``vn`` False)."""
@@ -555,7 +555,7 @@ class TorchEncoder:
     def _window_inputs(self, fulls: dict, wins: list, N: int,
                        vn: bool) -> dict:
         """Host tensors (pinned for a card, reused across calls) of
-        ``grouped_compact``'s arguments for windows of size N: each window's
+        ``match_rows``'s arguments for windows of size N: each window's
         bytes, zero-padded to N, and its positions grouped by hash bucket
         (``native.match_group``, on a host thread pool)."""
         B = len(wins)
@@ -586,14 +586,15 @@ class TorchEncoder:
         sources ``fulls``: window index -> (abs_pos, best_cand, best_len).
 
         Per window size N: ``_window_inputs`` (``win_prep``); one upload,
-        one ``grouped_compact`` launch, the download of keys, best
-        candidates and lengths, and ``take_sat_cols`` on the saturated slots
-        (``matchfind``); ``_arbitrate_window`` on those and the matched
-        slots as they are (``arbitrate``). With ``stats``, each window size
-        appends to ``stats["detail_match"]`` its N, window count, slots,
-        saturated and matched slots, bytes up and down, the seconds of its
-        three stages (``win_prep_s``, ``matchfind_s``, ``arbitrate_s``) and,
-        on a card, the CUDA-event ms of the upload, the kernel and the
+        one ``match_rows`` launch (the matched and saturated slots,
+        compacted on the device, and a read of their totals), one download
+        of those rows (``matchfind``); ``_arbitrate_window`` on the
+        saturated slots, the matched ones as they are (``arbitrate``). With
+        ``stats``, each window size appends to ``stats["detail_match"]`` its
+        N, window count, slots, saturated and matched slots, bytes up and
+        down, the seconds of its three stages (``win_prep_s``,
+        ``matchfind_s``, ``arbitrate_s``) and, on a card, the CUDA-event ms
+        of the upload, the kernel with its totals' read, and the
         download."""
         clock = clock or _Clock(stats)
         cuda = self.device.type == "cuda"
@@ -609,54 +610,44 @@ class TorchEncoder:
                    for k, v in host.items()}
             if cuda:
                 ev[1].record()
-            keys, bc, bl, cands, lcps = MF.grouped_compact(**dev, vn=vn)
+            rows = MF.match_rows(**dev, vn=vn)
             if cuda:
                 ev[2].record()
                 down = [self._host(f"down{j}", tuple(x.shape), x.dtype)
-                        for j, x in enumerate((keys, bc, bl))]
-                for h, x in zip(down, (keys, bc, bl)):
+                        for j, x in enumerate(rows)]
+                for h, x in zip(down, rows):
                     h.copy_(x, non_blocking=True)
                 ev[3].record()
                 ev[3].synchronize()
             else:
-                down = [keys, bc, bl]
-            keys_h, bc_h, bl_h = (x.numpy() for x in down)
-            sat_idx = [np.flatnonzero(kr == 0) for kr in keys_h]
-            mat_idx = [np.flatnonzero(kr == 1) for kr in keys_h]
-            # only the saturated slots need their candidate columns
-            smax = max(len(s) for s in sat_idx)
-            idx = np.zeros((B, smax), np.int32)
-            for r, s in enumerate(sat_idx):
-                idx[r, :len(s)] = s
-            cands_s, lcps_s = (x.cpu().numpy() for x in MF.take_sat_cols(
-                cands, lcps, torch.from_numpy(idx).to(self.device)))
-            del dev, keys, bc, bl, cands, lcps
+                down = rows
+            offs, matched, m_len, sat = (x.numpy() for x in down)
+            del dev, rows
             find_s = clock.mark("matchfind")
             orders = host["orders"].numpy()
             for r, k in enumerate(idxs):
                 i, base, ctx, n, _ = wins[k]
-                s_i, m_i = sat_idx[r], mat_idx[r]
-                S = len(s_i)
-                if S:
+                sr = sat[offs[r, 1]:offs[r + 1, 1]]
+                if len(sr):
                     sp, sc, sl = _arbitrate_window(
-                        fulls[i], base, ctx, n, orders[r][s_i],
-                        cands_s[r, :, :S], lcps_s[r, :, :S], vn)
+                        fulls[i], base, ctx, n, orders[r][sr[:, 0]],
+                        sr[:, 1:1 + C.HASH_WIDTH].T,
+                        sr[:, 1 + C.HASH_WIDTH:].T, vn)
                 else:
                     sp = sc = sl = np.zeros(0, np.int64)
-                dp = orders[r][m_i].astype(np.int64) + base
-                dc = bc_h[r][m_i].astype(np.int64) + base
-                dl = bl_h[r][m_i].astype(np.int64)
+                mr = matched[offs[r, 0]:offs[r + 1, 0]]
+                dp = orders[r][mr[:, 0]].astype(np.int64) + base
+                dc = mr[:, 1].astype(np.int64) + base
+                dl = m_len[offs[r, 0]:offs[r + 1, 0]].astype(np.int64)
                 out[k] = (np.concatenate([sp, dp]), np.concatenate([sc, dc]),
                           np.concatenate([sl, dl]))
             arb_s = clock.mark("arbitrate")
             if stats is not None:
                 det = {"N": N, "windows": B, "slots": B * N,
-                       "sat": sum(map(len, sat_idx)),
-                       "matched": sum(map(len, mat_idx)),
-                       "upload_bytes": sum(x.nbytes for x in host.values())
-                       + idx.nbytes,
-                       "download_bytes": keys_h.nbytes + bc_h.nbytes
-                       + bl_h.nbytes + cands_s.nbytes + lcps_s.nbytes,
+                       "sat": len(sat), "matched": len(matched),
+                       "upload_bytes": sum(x.nbytes for x in host.values()),
+                       "download_bytes": sum(x.nbytes for x in (
+                           offs, matched, m_len, sat)),
                        "win_prep_s": prep_s, "matchfind_s": find_s,
                        "arbitrate_s": arb_s}
                 if cuda:

@@ -17,13 +17,23 @@ tensors does it run the plain version. ``launches`` counts kernel launches
 
 from __future__ import annotations
 
+import ctypes
+import pathlib
+import re
+
 import numpy as np
 import torch
 
 from ..runtime import cuda_lib
 from . import lz_rebuild as LR
+from .cuda_decode import source_constant
 
 launches = {"lz_rebuild": 0}
+
+SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "lz_rebuild.cu"
+# output positions per lzr_tile block, as the source sets it
+TILE = source_constant(SOURCE, re.compile(r"^constexpr int kTile = (\d+);",
+                                          re.M), "kTile")
 
 lz_rebuild_ref = LR.lz_rebuild_flat
 
@@ -62,11 +72,14 @@ def _check(literals, lit_off, rows, row_off, n_raw, out_off) -> torch.device:
 
 
 def lz_rebuild(literals, lit_off, rows, row_off, n_raw, out_off,
-               n_out: int | None = None):
+               n_out: int | None = None, detail: dict | None = None):
     """Rebuild every container's output (see the module docstring).
     ``n_out`` is ``out_off[-1]``: pass it to spare a device-to-host read.
-    Raises ``ValueError`` when the output, the rows or the literals reach
-    2**31 entries (the kernel's indices are int32)."""
+    With ``detail``, ``detail["unresolved"]`` is set to the positions still
+    pointing at a parent after the tiles, then after each doubling round
+    that had work (a device-to-host read). Raises ``ValueError`` when the output,
+    the rows or the literals reach 2**31 entries (the kernel's indices are
+    int32)."""
     dev = _check(literals, lit_off, rows, row_off, n_raw, out_off)
     B = n_raw.numel()
     if n_out is None:
@@ -78,28 +91,51 @@ def lz_rebuild(literals, lit_off, rows, row_off, n_raw, out_off,
                              f"int32 offsets")
     if dev.type == "cpu":
         return lz_rebuild_ref(literals, lit_off, rows, row_off, n_raw,
-                              out_off, n_out)
+                              out_off, n_out, detail)
     if dev.type != "cuda":
         raise ValueError(f"lz_rebuild: no kernel for device {dev}")
     out = torch.empty(n_out, dtype=torch.uint8, device=dev)
     ok = torch.empty(B, dtype=torch.bool, device=dev)
     if B == 0:
+        if detail is not None:
+            detail["unresolved"] = []
         return out, ok
-    span_end, lit_end = LR.row_prefix(rows, row_off)
+    span_end, lit_end, row_start = LR.row_prefix(rows, row_off, out_off)
     # enough rounds for any segment: k rounds resolve 2**k links
     rounds = max(int(n_out - 1).bit_length(), 1)
-    root = torch.empty(max(n_out, 1), dtype=torch.int32, device=dev)
-    flags = torch.zeros(rounds, dtype=torch.int32, device=dev)
+    n = max(n_out, 1)
+    root = torch.empty(n, dtype=torch.int32, device=dev)
+    tile_open = torch.empty(2 * -(-n // TILE), dtype=torch.int32, device=dev)
+    counts = torch.zeros(rounds + 1, dtype=torch.int32, device=dev)
     ptrs = [t.data_ptr() for t in (literals, lit_off, rows, row_off, n_raw,
-                                   out_off, span_end, lit_end, root, flags,
-                                   out, ok)]
+                                   out_off, span_end, lit_end, row_start,
+                                   root, tile_open, counts, out, ok)]
     with torch.cuda.device(dev):
         rc = cuda_lib.lib().lzt_lz_rebuild(
             *ptrs, B, rows.shape[0], n_out, literals.numel(), rounds,
             torch.cuda.current_stream(dev).cuda_stream)
     cuda_lib.check(rc, "lz_rebuild")
     launches["lz_rebuild"] += 1
+    if detail is not None:
+        counts = counts.tolist()
+        while len(counts) > 1 and counts[-1] == counts[-2] == 0:
+            counts.pop()
+        detail["unresolved"] = counts
     return out, ok
+
+
+def kernel_attrs() -> dict:
+    """Registers, local (spill) bytes per thread and resident CUDA blocks
+    per SM of the rebuild's three main kernels, as the loaded library
+    reports them (needs a card)."""
+    out = {}
+    for k, name in enumerate(("lzr_tile", "lzr_round", "lzr_out")):
+        a = (ctypes.c_int * 3)()
+        cuda_lib.check(cuda_lib.lib().lzt_lz_rebuild_attrs(k, a),
+                       "lz_rebuild_attrs")
+        out[name] = {"registers": a[0], "local_bytes": a[1],
+                     "blocks_per_sm": a[2]}
+    return out
 
 
 def from_jax_rebuild_args(literals, rows, n_raw, n_out: int,

@@ -116,52 +116,68 @@ def _segments(off: torch.Tensor) -> torch.Tensor:
     return o[1:] - o[:-1]
 
 
-def row_prefix(rows: torch.Tensor, row_off: torch.Tensor):
-    """(span_end, lit_end), int32 (R,): each container's inclusive prefix
-    sums of l + m and of l over its own rows, computed exactly and clamped
-    to int32's range (exact whenever a container's sums stay below 2**31,
-    as they do for any container that can be valid). Glue shared by the
+def row_prefix(rows: torch.Tensor, row_off: torch.Tensor,
+               out_off: torch.Tensor):
+    """(span_end, lit_end, row_start), int32 (R,): each container's
+    inclusive prefix sums of l + m and of l over its own rows, computed
+    exactly and clamped to int32's range (exact whenever a container's sums
+    stay below 2**31, as they do for any container that can be valid), and
+    each row's first output position in the flat output: its container's
+    segment start plus the exclusive prefix sum of max(l + m, 0), capped at
+    the segment's length. ``row_start`` is non-decreasing over the whole
+    batch (for non-decreasing ``out_off``), and a position's row is its
+    container's last row starting at or before it. Glue shared by the
     kernel and its plain version; no host sync."""
     R = rows.shape[0]
     dev = rows.device
     if R == 0:
         z = torch.zeros(0, dtype=torch.int32, device=dev)
-        return z, z
+        return z, z, z
     l = rows[:, 0].long()
-    m = rows[:, 1].long()
+    lm = l + rows[:, 1].long()
     B = row_off.numel() - 1
     owner = torch.repeat_interleave(torch.arange(B, device=dev),
                                     _segments(row_off), output_size=R)
     first = row_off.long()[:-1][owner]
-    out = []
-    for v in (l + m, l):
+    zero = torch.zeros(1, dtype=torch.int64, device=dev)
+
+    def restarted(v):
+        # 1-D scans: torch's scan along dim 0 of an (R, 3) tensor took
+        # 2.4 s on the H100 for 12 M rows
         cs = torch.cumsum(v, 0)
-        base = torch.cat((torch.zeros(1, dtype=cs.dtype, device=dev), cs))
-        out.append((cs - base[first]).clamp(_I32_MIN, _I32_MAX)
-                   .to(torch.int32))
-    return out[0], out[1]
+        return cs - torch.cat((zero, cs))[first]
+
+    ext = lm.clamp(min=0)
+    start = out_off.long()[owner] + torch.minimum(
+        restarted(ext) - ext, _segments(out_off)[owner])
+    return (restarted(lm).clamp(_I32_MIN, _I32_MAX).int(),
+            restarted(l).clamp(_I32_MIN, _I32_MAX).int(), start.int())
 
 
 def lz_rebuild_flat(literals, lit_off, rows, row_off, n_raw, out_off,
-                    n_out: int | None = None):
+                    n_out: int | None = None, detail: dict | None = None):
     """``lz_rebuild_batch`` per container on a flat, ragged layout.
 
     Container c's literal pool is ``literals[lit_off[c]:lit_off[c+1]]``
     (uint8), its rows ``rows[row_off[c]:row_off[c+1]]`` ((R, 3) int32, l and
     m >= 0, d substituted), its true size ``n_raw[c]`` and its output
     segment ``out[out_off[c]:out_off[c+1]]``; offsets are int32 (B + 1,)
-    starting at 0. ``n_out`` is ``out_off[-1]`` when the caller knows it.
-    Returns (out (n_out,) uint8, ok (B,) bool). Per container this is
-    ``lz_rebuild_batch`` with L, R and n_out its own: positions past n_raw
-    are 0, a position past the rows resolves through its last row, and an
-    empty pool gives zeros. ``from_jax_rebuild_args`` (``ops/cuda_rebuild``)
-    lays the padded arguments out so that the two agree byte for byte."""
+    starting at 0 and non-decreasing. ``n_out`` is ``out_off[-1]`` when the
+    caller knows it. Returns (out (n_out,) uint8, ok (B,) bool). Per
+    container this is ``lz_rebuild_batch`` with L, R and n_out its own:
+    positions past n_raw are 0, a position past the rows resolves through
+    its last row, and an empty pool gives zeros. ``from_jax_rebuild_args``
+    (``ops/cuda_rebuild``) lays the padded arguments out so that the two
+    agree byte for byte. It resolves every match byte by plain pointer
+    doubling over the whole map, one link a byte; with ``detail``, it sets
+    ``detail["unresolved"]`` to the positions that still point at a parent
+    before the first round and after each."""
     dev = rows.device
     B = n_raw.numel()
     if n_out is None:
         n_out = int(out_off[-1]) if B else 0
     R = rows.shape[0]
-    span_end, lit_end = row_prefix(rows, row_off)
+    span_end, lit_end, row_start = row_prefix(rows, row_off, out_off)
     Rc, Lc, Sc = _segments(row_off), _segments(lit_off), _segments(out_off)
     ro, lo_, oo = row_off.long(), lit_off.long(), out_off.long()
     l, m, d = (rows[:, k].long() for k in range(3))
@@ -181,24 +197,19 @@ def lz_rebuild_flat(literals, lit_off, rows, row_off, n_raw, out_off,
         n_bad.index_add_(0, owner, bad.long())
         ok &= n_bad == 0
     if n_out == 0:
+        if detail is not None:
+            detail["unresolved"] = []
         return torch.zeros(0, dtype=torch.uint8, device=dev), ok
 
     c = torch.repeat_interleave(torch.arange(B, device=dev), Sc,
                                 output_size=n_out)
-    p = torch.arange(n_out, device=dev) - oo[c]
-    # the owning row: first row of the container with span_end > p, by the
-    # kernel's binary search (same steps, so the same row on any input)
-    rc, base = Rc[c], ro[c]
-    lo = torch.zeros_like(p)
-    hi = rc.clone()
-    for _ in range(int(Rc.max()).bit_length() if R else 0):
-        act = lo < hi
-        mid = (lo + hi) >> 1
-        right = se[(base + mid).clamp(0, R - 1)] > p
-        hi = torch.where(act & right, mid, hi)
-        lo = torch.where(act & ~right, mid + 1, lo)
-    row_ok = rc > 0
-    g = (base + torch.minimum(lo, rc - 1)).clamp(0, max(R - 1, 0))
+    i = torch.arange(n_out, device=dev)
+    p = i - oo[c]
+    # the owning row: the last row starting at or before the position, if
+    # it is one of the container's own
+    g = torch.searchsorted(row_start, i.int(), right=True).long() - 1
+    row_ok = (g >= ro[c]) & (g < ro[c + 1])
+    g = g.clamp(0, max(R - 1, 0))
 
     def at(x):
         return torch.where(row_ok, x[g], 0) if R else torch.zeros_like(p)
@@ -211,8 +222,18 @@ def lz_rebuild_flat(literals, lit_off, rows, row_off, n_raw, out_off,
     parent = torch.minimum((p - rd.clamp(min=1)).clamp(min=0), Sc[c] - 1)
     # a root holds -(its literal index + 1); any other position its parent
     a = torch.where(is_lit | (parent == p), -(li + 1), oo[c] + parent)
-    for _ in range(int(Sc.max() - 1).bit_length()):
-        a = torch.where(a >= 0, a[a.clamp(min=0)], a)
+    rounds = int(Sc.max() - 1).bit_length()
+    counts = []
+    for k in range(rounds + 1):
+        if detail is not None:
+            counts.append(torch.count_nonzero(a >= 0))
+        if k < rounds:
+            a = torch.where(a >= 0, a[a.clamp(min=0)], a)
+    if detail is not None:
+        counts = torch.stack(counts).tolist()
+        while len(counts) > 1 and counts[-1] == counts[-2] == 0:
+            counts.pop()
+        detail["unresolved"] = counts
     src = (lo_[c] - a - 1).clamp(0, max(literals.numel() - 1, 0))
     val = literals[src].long() if literals.numel() else torch.zeros_like(p)
     out = torch.where((L > 0) & (p < n_raw.long()[c]), val, 0)

@@ -23,24 +23,47 @@ For every slot ``s`` of every window ``b``, with ``p = orders[b, s]``:
 
 Inputs, all contiguous on one device: ``pads`` (B, N) uint8, ``n_reals``,
 ``los``, ``his`` (B,) int32, ``orders`` (B, N) int32 (positions in
-[0, N)), ``oks`` (B, N) uint8. Outputs: ``keys`` (B, N) uint8,
-``best_cand`` and ``best_len`` (B, N) int32 (0 where nothing matched),
-``cands`` and ``lcps`` (B, 4, N) int32.
+[0, N)), ``oks`` (B, N) uint8.
 
-On a CUDA device ``grouped_compact`` launches the kernel
-(``csrc/match_find.cu``) or raises; only for CPU tensors does it run the
-plain version. ``launches`` counts kernel launches.
+``grouped_compact_ref`` returns every slot's outputs, as the JAX function
+does: ``keys`` (B, N) uint8, ``best_cand`` and ``best_len`` (B, N) int32 (0
+where nothing matched), ``cands`` and ``lcps`` (B, 4, N) int32.
+``match_rows`` returns only what the encoder reads, window after window,
+each window's slots in ascending order:
+
+* ``offsets`` (B + 1, 2) int32: the matched and saturated rows before each
+  window (row B: the totals M and S);
+* ``matched`` (M, 2) int32, the key-1 slots' (slot, best_cand), and
+  ``m_len`` (M,) uint8 their best_len (at most 64);
+* ``sat`` (S, 9) int32, the key-0 slots' (slot, their 4 cands, their 4
+  lcps).
+
+On a CUDA device ``match_rows`` launches the kernel (``csrc/match_find.cu``)
+or raises; only for CPU tensors does it run its plain version,
+``match_rows_ref``: ``grouped_compact_ref``, then ``take_sat_cols`` on the
+saturated slots, then the compaction as torch ops. ``launches`` counts
+kernel launches.
 """
 
 from __future__ import annotations
+
+import ctypes
+import pathlib
+import re
 
 import torch
 
 from ..base import constants as C
 from ..runtime import cuda_lib
-from .cuda_decode import _pointers
+from .cuda_decode import _pointers, source_constant
 
 WINDOW = 64  # bytes compared per LCP; longer runs are re-extended on the host
+SAT_COLS = 1 + 2 * C.HASH_WIDTH  # slot, cands, lcps
+SOURCE = pathlib.Path(__file__).resolve().parents[1] / "csrc" / "match_find.cu"
+# slots per CUDA block of the kernel, as the source sets it: the scratch
+# holds one status word per block
+BLOCK_SLOTS = source_constant(SOURCE, re.compile(
+    r"^constexpr int kBlockSlots = (\d+);", re.M), "kBlockSlots")
 
 # kernel launches, for checks that a run went through the kernel
 launches = {"match_grouped": 0}
@@ -60,54 +83,72 @@ def _validate(tensors: dict) -> tuple[torch.device, int, int]:
     (B, N) rows and (B,) vectors. Returns (device, B, N)."""
     pads = tensors["pads"]
     if pads.dim() != 2:
-        raise ValueError(f"grouped_compact: pads must be (B, N), got "
+        raise ValueError(f"match_rows: pads must be (B, N), got "
                          f"{tuple(pads.shape)}")
     B, N = pads.shape
     for key, dtype, dims in _INPUTS:
         t = tensors[key]
         want = (B, N) if dims == 2 else (B,)
         if t.dtype != dtype:
-            raise TypeError(f"grouped_compact: {key} must be {dtype}, got "
+            raise TypeError(f"match_rows: {key} must be {dtype}, got "
                             f"{t.dtype}")
         if not t.is_contiguous():
-            raise ValueError(f"grouped_compact: {key} must be contiguous")
+            raise ValueError(f"match_rows: {key} must be contiguous")
         if t.device != pads.device:
-            raise ValueError(f"grouped_compact: {key} is on {t.device}, pads "
+            raise ValueError(f"match_rows: {key} is on {t.device}, pads "
                              f"on {pads.device}")
         if tuple(t.shape) != want:
-            raise ValueError(f"grouped_compact: {key} must be {want}, got "
+            raise ValueError(f"match_rows: {key} must be {want}, got "
                              f"{tuple(t.shape)}")
+    if B * N >= 2**31:
+        raise ValueError(f"match_rows: {B} x {N} slots reach 2**31, beyond "
+                         f"int32 row counts")
     return pads.device, B, N
 
 
-def grouped_compact(pads, n_reals, los, his, orders, oks, vn: bool):
-    """Grouped candidate LCPs and FIFO strict-max arbitration for a batch of
-    windows. Returns ``(keys, best_cand, best_len, cands, lcps)`` (see the
-    module docstring)."""
+def match_rows(pads, n_reals, los, his, orders, oks, vn: bool):
+    """Grouped candidate LCPs, FIFO strict-max arbitration and the
+    compaction of the matched and saturated slots for a batch of windows.
+    Returns ``(offsets, matched, m_len, sat)`` (see the module docstring);
+    on a card it reads the totals back (one sync) to size them."""
     dev, B, N = _validate(dict(pads=pads, n_reals=n_reals, los=los, his=his,
                                orders=orders, oks=oks))
     if dev.type == "cpu":
-        return grouped_compact_ref(pads, n_reals, los, his, orders, oks, vn)
+        return match_rows_ref(pads, n_reals, los, his, orders, oks, vn)
     if dev.type != "cuda":
-        raise ValueError(f"grouped_compact: no kernel for device {dev}")
+        raise ValueError(f"match_rows: no kernel for device {dev}")
     # the kernel reads each row as aligned 8-byte words
     if N % 8 or pads.data_ptr() % 8:
-        raise ValueError(f"grouped_compact: the kernel needs N a multiple "
-                         f"of 8 and 8-byte aligned pads, got N={N}")
-    keys = torch.empty((B, N), dtype=torch.uint8, device=dev)
-    best_cand = torch.empty((B, N), dtype=torch.int32, device=dev)
-    best_len = torch.empty((B, N), dtype=torch.int32, device=dev)
-    cands = torch.empty((B, C.HASH_WIDTH, N), dtype=torch.int32, device=dev)
-    lcps = torch.empty((B, C.HASH_WIDTH, N), dtype=torch.int32, device=dev)
-    if B and N:
+        raise ValueError(f"match_rows: the kernel needs N a multiple of 8 "
+                         f"and 8-byte aligned pads, got N={N}")
+    cap = B * N
+    offsets = torch.zeros((B + 1, 2), dtype=torch.int32, device=dev)
+    matched = torch.empty((cap, 2), dtype=torch.int32, device=dev)
+    m_len = torch.empty(cap, dtype=torch.uint8, device=dev)
+    sat = torch.empty((cap, SAT_COLS), dtype=torch.int32, device=dev)
+    if cap:
+        # word 0: the block ticket; then one status word per CUDA block
+        scratch = torch.zeros(1 + B * -(-N // BLOCK_SLOTS), dtype=torch.int64,
+                              device=dev)
         with torch.cuda.device(dev):
-            rc = cuda_lib.lib().lzt_match_grouped(
-                *_pointers(pads, n_reals, los, his, orders, oks, keys,
-                           best_cand, best_len, cands, lcps),
+            rc = cuda_lib.lib().lzt_match_rows(
+                *_pointers(pads, n_reals, los, his, orders, oks),
+                scratch.data_ptr(), scratch.data_ptr() + 8,
+                *_pointers(matched, m_len, sat, offsets),
                 B, N, int(bool(vn)), torch.cuda.current_stream(dev).cuda_stream)
         cuda_lib.check(rc, "match_grouped")
         launches["match_grouped"] += 1
-    return keys, best_cand, best_len, cands, lcps
+    M, S = offsets[-1].tolist()
+    return offsets, matched[:M], m_len[:M], sat[:S]
+
+
+def kernel_attrs() -> dict:
+    """Registers, local (spill) bytes per thread and resident CUDA blocks
+    per SM of the kernel, as the loaded library reports them (needs a
+    card)."""
+    a = (ctypes.c_int * 3)()
+    cuda_lib.check(cuda_lib.lib().lzt_match_rows_attrs(a), "match_attrs")
+    return {"registers": a[0], "local_bytes": a[1], "blocks_per_sm": a[2]}
 
 
 def take_sat_cols(cands, lcps, idx):
@@ -172,8 +213,8 @@ def _grouped_compact_one(src_pad, n_real, lo, hi, order, ok, vn: bool):
 
 
 def grouped_compact_ref(pads, n_reals, los, his, orders, oks, vn: bool):
-    """Plain PyTorch version of ``grouped_compact``, one window at a time;
-    same arguments and results."""
+    """Every slot's outputs, as the JAX ``find_matches_grouped_compact``
+    returns them (see the module docstring), one window at a time."""
     B, N = pads.shape
     if B == 0 or N == 0:
         dev = pads.device
@@ -183,3 +224,27 @@ def grouped_compact_ref(pads, n_reals, los, his, orders, oks, vn: bool):
     outs = [_grouped_compact_one(pads[b], n_reals[b], los[b], his[b],
                                  orders[b], oks[b], vn) for b in range(B)]
     return tuple(torch.stack(col) for col in zip(*outs))
+
+
+def match_rows_ref(pads, n_reals, los, his, orders, oks, vn: bool):
+    """Plain PyTorch version of ``match_rows``: ``grouped_compact_ref``,
+    then ``take_sat_cols`` on each window's saturated slots (zero-padded to
+    the most any window has), then the rows compacted in window order."""
+    keys, best_cand, best_len, cands, lcps = grouped_compact_ref(
+        pads, n_reals, los, his, orders, oks, vn)
+    B = keys.shape[0]
+    dev = keys.device
+    counts = torch.stack(((keys == 1).sum(1), (keys == 0).sum(1)), 1)
+    offsets = torch.cat((torch.zeros((1, 2), dtype=torch.int64, device=dev),
+                         torch.cumsum(counts, 0))).int()
+    mw, ms = torch.nonzero(keys == 1, as_tuple=True)
+    matched = torch.stack((ms, best_cand[mw, ms]), 1).int()
+    m_len = best_len[mw, ms].to(torch.uint8)
+    sw, ss = torch.nonzero(keys == 0, as_tuple=True)
+    rank = torch.arange(len(ss), device=dev) - offsets[sw, 1].long()
+    smax = int(counts[:, 1].max()) if B else 0
+    idx = torch.zeros((B, smax), dtype=torch.int32, device=dev)
+    idx[sw, rank] = ss.int()
+    cs, ls = take_sat_cols(cands, lcps, idx)
+    sat = torch.cat((ss[:, None].int(), cs[sw, :, rank], ls[sw, :, rank]), 1)
+    return offsets, matched, m_len, sat

@@ -27,13 +27,17 @@ _ENTRY_POINTS = {
     # (csrc/fse_encode.cu)
     "lzt_encode_literals": [_P] * 7 + [_I, _I, _P],
     "lzt_encode_lmds": [_P] * 10 + [_I, _I, _P],
-    # pads, n_reals, los, his, orders, oks, 5 outputs; nb, n, vn, stream
-    # (csrc/match_find.cu)
-    "lzt_match_grouped": [_P] * 11 + [_I, _I, _I, _P],
+    # pads, n_reals, los, his, orders, oks, ticket, status, 4 outputs; nb,
+    # n, vn, stream (csrc/match_find.cu)
+    "lzt_match_rows": [_P] * 12 + [_I, _I, _I, _P],
+    # attrs (3 ints)
+    "lzt_match_rows_attrs": [_P],
     # literals, lit_off, rows, row_off, n_raw, out_off, span_end, lit_end,
-    # root, flags, out, ok; nb, n_rows, n_out, n_lits, rounds, stream
-    # (csrc/lz_rebuild.cu)
-    "lzt_lz_rebuild": [_P] * 12 + [_I] * 5 + [_P],
+    # row_start, root, tile_open, counts, out, ok; nb, n_rows, n_out,
+    # n_lits, rounds, stream (csrc/lz_rebuild.cu)
+    "lzt_lz_rebuild": [_P] * 14 + [_I] * 5 + [_P],
+    # kernel, attrs (3 ints)
+    "lzt_lz_rebuild_attrs": [_I, _P],
     # body; tab, chunk, x, out; n_rows, n_steps, stream (csrc/probes.cu)
     "lzt_probe_step": [_I] + [_P] * 4 + [_I, _I, _P],
     # body -> 1 table in shared memory, 0 in device memory, -1 unknown

@@ -16,8 +16,8 @@ rebuild beside it:
   its host plan) and the rebuild kernel (``ops/cuda_rebuild.lz_rebuild``),
   each the mean of 5 runs between CUDA events after a warm-up; the
   kernel's output checked against the raw inputs; ``torch.profiler``
-  tables of the flatten and of the kernel's parts (each doubling round's
-  time, so the rounds the data needs show); then the 134.6 MB of output to the host three
+  tables of the flatten and of the kernel's parts (the row checks, the
+  tiles, each doubling round with the positions still open before it, and the output pass); then the 134.6 MB of output to the host three
   ways, 5 runs each, second-smallest: straight into each container's bytes
   object (a pageable copy each), into one pinned buffer followed by one
   host copy into each bytes object, and the decoder's way: the pinned
@@ -123,13 +123,17 @@ def profile_flatten(dec, dense, conts, n_raw) -> str:
 
 def profile_kernel(args: dict) -> dict:
     """The rebuild's CUDA kernels in one call, from ``torch.profiler``:
-    microseconds per kernel name, and each doubling round's in launch
-    order (a round after the flag ended them returns at once)."""
+    microseconds per kernel name (``lzr_tile``: init with in-row chains
+    folded and in-tile links resolved; ``lzr_round``: the doubling rounds;
+    ``lzr_out``: the gather), each round's in launch order (a round after
+    nothing was left returns at once), and the positions still open before
+    each round."""
     from torch.profiler import ProfilerActivity, profile
 
     from ..ops import cuda_rebuild as CR
+    detail: dict = {}
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        CR.lz_rebuild(**args)
+        CR.lz_rebuild(**args, detail=detail)
         torch.cuda.synchronize()
     per, rounds = {}, []
     for ev in prof.events():
@@ -139,9 +143,10 @@ def profile_kernel(args: dict) -> dict:
         if name.startswith("lzr_"):
             us = ev.time_range.elapsed_us()
             per[name] = per.get(name, 0.0) + us
-            if name == "lzr_jump":
+            if name == "lzr_round":
                 rounds.append(round(us, 1))
-    return {"kernel_us": per, "round_us": rounds}
+    return {"kernel_us": per, "round_us": rounds,
+            "unresolved": detail["unresolved"]}
 
 
 def device_rebuild(dec, sources, raws) -> dict:
@@ -164,7 +169,8 @@ def device_rebuild(dec, sources, raws) -> dict:
     kernel_ms = cuda_ms(lambda: CR.lz_rebuild(**args), reps=5, warmup=1)
     split = profile_kernel(args)
     print(f"rebuild kernels, us: {split['kernel_us']}; doubling rounds in "
-          f"order: {split['round_us']}", flush=True)
+          f"order: {split['round_us']}; open positions before each round "
+          f"and after the last: {split['unresolved']}", flush=True)
     got = out_to_host(out, out_off)
     bad = sum(g != r for g, r in zip(got, raws)) + int((~ok).sum())
     if bad:

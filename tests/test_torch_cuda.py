@@ -318,18 +318,19 @@ def test_cuda_encoder_end_to_end():
 
 
 def _match_cases(a: dict, vn: bool):
-    """The grouped-match kernel against its plain version on the card, on
-    numpy arguments ``a``; the plain version is never taken for CUDA
-    tensors."""
+    """The grouped-match kernel (``match_rows``) against its plain version
+    on the card, on numpy arguments ``a``; the plain version is never taken
+    for CUDA tensors. Returns every slot's keys (from the plain version's
+    first half) and the kernel's rows."""
     args = {k: torch.from_numpy(np.ascontiguousarray(v)).cuda()
             for k, v in a.items()}
     before = MF.launches["match_grouped"]
-    got = MF.grouped_compact(**args, vn=vn)
+    got = MF.match_rows(**args, vn=vn)
     torch.cuda.synchronize()
     assert MF.launches["match_grouped"] == before + 1
-    for g, w in zip(got, MF.grouped_compact_ref(**args, vn=vn)):
+    for g, w in zip(got, MF.match_rows_ref(**args, vn=vn)):
         assert g.dtype == w.dtype and torch.equal(g, w)
-    return got
+    return MF.grouped_compact_ref(**args, vn=vn)[0], got
 
 
 @pytest.mark.cuda
@@ -358,12 +359,12 @@ def test_cuda_match_grouped_edge_windows(vn):
 @pytest.mark.cuda
 @pytest.mark.parametrize("vn", [False, True])
 def test_cuda_match_grouped_more_windows_than_a_wave(vn):
-    """80 windows of 16 CUDA blocks each: more blocks than the card holds
-    at once (132 SMs, 8 blocks of 256 threads each)."""
+    """600 windows of 2 CUDA blocks each (2,048 slots a block): more
+    blocks than the card holds at once (132 SMs, 6 blocks each)."""
     rng = np.random.default_rng(63)
     kinds = corpus.KINDS
     rows = []
-    for b in range(80):
+    for b in range(600):
         n = int(rng.integers(0, 4096 - 128))
         data = corpus.make_raw(kinds[b % len(kinds)], n, rng)
         lo = int(rng.integers(0, n + 1))
@@ -389,6 +390,38 @@ def test_cuda_match_grouped_any_orders_and_bits(vn):
              oks=rng.integers(0, 256, (B, N), dtype=np.uint8))
     a["pads"][1, ::7] = 9
     _match_cases(a, vn)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("vn", [False, True])
+def test_cuda_match_rows_across_block_and_window_boundaries(vn):
+    """Windows of N = 2056 (one CUDA block of 2,048 slots and a ragged
+    second), zero rows (every probed slot saturated) beside text and
+    random rows, so the compacted rows cross block and window boundaries
+    in every mix, and more windows than a wave of the card's CUDA
+    blocks."""
+    rng = np.random.default_rng(65)
+    N = 2056
+    rows = []
+    for b in range(1000):
+        n = int(rng.integers(0, N - 128))
+        kind = b % 3
+        data = (bytes(n) if kind == 0 else words(rng, N)[:n] if kind == 1
+                else bytes(rng.integers(0, 256, n, dtype=np.uint8)))
+        lo = int(rng.integers(0, 300))
+        rows.append((data, n, lo, int(rng.integers(lo, N + 1))))
+    keys, (offsets, matched, m_len, sat) = _match_cases(
+        grouped_inputs(rows, N, vn, native_runtime().match_group), vn)
+    counts = torch.diff(offsets.cpu(), dim=0)
+    assert (counts[:, 1] > 300).sum() > 200 and (counts[:, 0] > 0).sum() > 200
+    assert int(offsets[-1, 0]) == int((keys == 1).sum())
+
+
+@pytest.mark.cuda
+def test_cuda_match_rows_registers():
+    """More than 3 CUDA blocks of 256 slots fit on an SM, with no spills."""
+    attrs = MF.kernel_attrs()
+    assert attrs["blocks_per_sm"] > 3 and attrs["local_bytes"] == 0, attrs
 
 
 @pytest.mark.cuda
@@ -566,6 +599,84 @@ def test_cuda_rebuild_more_blocks_than_a_wave():
     assert sum(c[3] for c in conts) > 132 * 16 * 256
     out, ok = _rebuild_on_card(_flat(conts))
     assert ok.all()
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_tile_boundaries():
+    """Tile boundaries (every 4096 output positions) inside a row, at a
+    row's first byte, at a container boundary, and where empty containers
+    (with and without rows, pools or segments) sit exactly on one."""
+    tile = CR.TILE
+    rng = np.random.default_rng(75)
+    lit = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    conts = [(lit[:10], [[10, tile - 10 - 700, 3], [0, 700, 700],
+                         [0, 5000, 4000]], 2 * tile + 904, 2 * tile + 904),
+             (lit[:9], [[9, tile - 9 - 904 + tile, 9]], tile - 904 + tile,
+              tile - 904 + tile),
+             (b"", [], 0, 0), (b"", [[0, 0, 0]], 0, 0), (lit, [], 0, 0),
+             (lit[:5], [[5, 3000, 2], [0, 0, 0], [0, 0, 0], [0, 2000, 1]],
+              5005, 5005)]
+    out, ok = _rebuild_on_card(_flat(conts))
+    assert ok.all()
+    assert int(_flat(conts)["out_off"][2]) % tile == 0
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_more_tiles_than_a_wave():
+    """8 MiB of output over containers of random sizes: many more tiles
+    than the card holds at once, and more open positions than one
+    launch of a round has threads."""
+    rng = np.random.default_rng(76)
+    conts, total = [], 0
+    while total < 8 << 20:
+        rows, made, used = [], 0, 0
+        for _ in range(int(rng.integers(1, 400))):
+            l = int(rng.integers(0, 30)) if made else int(rng.integers(1, 30))
+            m = int(rng.integers(0, 600))
+            d = int(rng.integers(1, made + l + 1))
+            rows.append([l, m, d])
+            made, used = made + l + m, used + l
+        conts.append((bytes(rng.integers(0, 256, used, dtype=np.uint8)),
+                      rows, made, made))
+        total += made
+    detail: dict = {}
+    args = {k: v.cuda() for k, v in _flat(conts).items()}
+    out, ok = CR.lz_rebuild(**args, detail=detail)
+    assert torch.equal(out, CR.lz_rebuild_ref(**args)[0]) and bool(ok.all())
+    counts = detail["unresolved"]
+    assert counts[0] > 132 * 16 * 256 and counts[-1] == 0
+    assert all(a >= b for a, b in zip(counts, counts[1:]))
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_chain_across_many_rows():
+    """Each row copies the row before it (d = m), 3,000 rows deep, beside a
+    periodic run that copies across rows with d < m: chains of thousands
+    of links that no row folds away, across many tiles."""
+    rng = np.random.default_rng(77)
+    rows, made = [[5, 0, 0]], 5
+    for _ in range(3000):
+        m = int(rng.integers(2, 40))
+        rows.append([0, m, min(m, made)])
+        made += m
+    per, pmade = [[7, 0, 0]], 7
+    for _ in range(2000):
+        m = int(rng.integers(8, 30))
+        per.append([0, m, 7])
+        pmade += m
+    out, ok = _rebuild_on_card(_flat([(b"hello", rows, made, made),
+                                      (b"abcdefg", per, pmade, pmade)]))
+    assert ok.all()
+    assert out[made:].numpy().tobytes() == (b"abcdefg" * pmade)[:pmade]
+
+
+@pytest.mark.cuda
+def test_cuda_rebuild_registers():
+    """No kernel of the rebuild spills; the tile kernel fits more than one
+    CUDA block an SM."""
+    attrs = CR.kernel_attrs()
+    assert all(a["local_bytes"] == 0 for a in attrs.values()), attrs
+    assert attrs["lzr_tile"]["blocks_per_sm"] > 1, attrs
 
 
 @pytest.mark.cuda

@@ -5,11 +5,15 @@ On the CPU the port runs the grouped-match kernel's plain version. Inputs
 are made from seeds with numpy and handed to both sides; every result is an
 integer, so every comparison is exact (tolerance 0):
 
-* ``grouped_compact`` against ``find_matches_grouped_compact`` (plain
+* ``grouped_compact_ref`` against ``find_matches_grouped_compact`` (plain
   ``jax.jit`` on the CPU; no Pallas in it) on windows with long runs
   (saturation), matches that end at ``n_real``, random bytes, an all-zero
   row and ``n_real < 4``, each side grouping with its own
   ``native.match_group``; ``take_sat_cols`` against its JAX twin;
+  ``match_rows`` (the kernel's entry, its plain version on the CPU)
+  against ``find_matches_grouped_compact``, then ``take_sat_cols``, then
+  ``np.flatnonzero`` on the keys, as the encoder did with the JAX
+  outputs;
 * ``_windows_compact_grouped`` and ``_device_matches`` against
   ``TpuEncoder``'s and the spec layer's ``find_matches``;
 * ``encode_many`` and ``encode_bytes`` against ``native.encode_bytes`` and
@@ -67,8 +71,8 @@ def test_grouped_compact_equals_jax(N, vn, nat):
     want = JMF.find_matches_grouped_compact(
         *(jnp.asarray(theirs[k]) for k in ("pads", "n_reals", "los", "his",
                                            "orders", "oks")), vn)
-    got = MF.grouped_compact(**{k: torch.from_numpy(v)
-                                for k, v in ours.items()}, vn=vn)
+    got = MF.grouped_compact_ref(**{k: torch.from_numpy(v)
+                                    for k, v in ours.items()}, vn=vn)
     for g, w in zip(got, want):
         w = np.asarray(w)
         assert g.numpy().dtype == w.dtype and g.shape == w.shape
@@ -100,16 +104,62 @@ def test_take_sat_cols_equals_jax():
         np.testing.assert_array_equal(g.numpy(), np.asarray(w))
 
 
+ARGS = ("pads", "n_reals", "los", "his", "orders", "oks")
+
+
+def _jax_rows(a: dict, vn: bool):
+    """What the encoder read of the JAX outputs: per window, the key-1
+    slots with their winners and the key-0 slots with their candidate
+    columns from ``take_sat_cols``, found by ``np.flatnonzero``."""
+    keys, bc, bl, cands, lcps = (np.asarray(x) for x in
+                                 JMF.find_matches_grouped_compact(
+                                     *(jnp.asarray(a[k]) for k in ARGS), vn))
+    sat_idx = [np.flatnonzero(k == 0) for k in keys]
+    mat_idx = [np.flatnonzero(k == 1) for k in keys]
+    idx = np.zeros((len(keys), max(map(len, sat_idx))), np.int32)
+    for r, s in enumerate(sat_idx):
+        idx[r, :len(s)] = s
+    cs, ls = (np.asarray(x) for x in JMF.take_sat_cols(
+        jnp.asarray(cands), jnp.asarray(lcps), jnp.asarray(idx)))
+    counts = np.array([[len(m), len(s)] for m, s in zip(mat_idx, sat_idx)])
+    offsets = np.concatenate(([[0, 0]], np.cumsum(counts, 0))).astype(np.int32)
+    matched = np.concatenate([np.stack((m, bc[r][m]), 1)
+                              for r, m in enumerate(mat_idx)]).astype(np.int32)
+    m_len = np.concatenate([bl[r][m] for r, m in enumerate(mat_idx)])
+    sat = np.concatenate([np.concatenate((s[:, None], cs[r, :, :len(s)].T,
+                                          ls[r, :, :len(s)].T), 1)
+                          for r, s in enumerate(sat_idx)]).astype(np.int32)
+    return offsets, matched, m_len.astype(np.uint8), sat
+
+
+@pytest.mark.parametrize("N", [4096, 8192])
+@pytest.mark.parametrize("vn", [False, True])
+def test_match_rows_equals_jax_then_take_sat_cols(N, vn, nat):
+    """Windows with saturated runs, an all-saturated zero row, almost
+    nothing in random bytes, and none at all (n_real 3 and 0)."""
+    rows = window_rows(N, seed=N + vn + 100)
+    ours = grouped_inputs(rows, N, vn, nat.match_group)
+    want = _jax_rows(grouped_inputs(rows, N, vn, jax_native.match_group), vn)
+    got = MF.match_rows(**{k: torch.from_numpy(v) for k, v in ours.items()},
+                        vn=vn)
+    for g, w in zip(got, want):
+        assert g.numpy().dtype == w.dtype
+        np.testing.assert_array_equal(g.numpy(), w)
+    counts = np.diff(got[0].numpy(), axis=0)
+    assert counts[4, 1] > N // 2 and (counts[5:] == 0).all()
+    assert counts[0, 0] > 0 and counts[3].sum() < N // 100
+
+
 def test_grouped_compact_validates_its_arguments(nat):
     a = {k: torch.from_numpy(v) for k, v in grouped_inputs(
         window_rows(4096, 1)[:2], 4096, False, nat.match_group).items()}
     with pytest.raises(TypeError, match="orders must be torch.int32"):
-        MF.grouped_compact(**{**a, "orders": a["orders"].long()}, vn=False)
+        MF.match_rows(**{**a, "orders": a["orders"].long()}, vn=False)
     with pytest.raises(ValueError, match=r"oks must be \(2, 4096\)"):
-        MF.grouped_compact(**{**a, "oks": a["oks"][:, :100].contiguous()}, vn=False)
+        MF.match_rows(**{**a, "oks": a["oks"][:, :100].contiguous()}, vn=False)
     with pytest.raises(ValueError, match="pads must be contiguous"):
-        MF.grouped_compact(**{**a, "pads": a["pads"].t().contiguous().t()},
-                           vn=False)
+        MF.match_rows(**{**a, "pads": a["pads"].t().contiguous().t()},
+                      vn=False)
 
 
 @pytest.mark.parametrize("vn", [False, True])
@@ -173,8 +223,10 @@ def test_encode_many_equals_native_and_tpu_encoder(mixed, enc, nat,
     wins = enc.windows(mixed)
     assert sorted(d["N"] for d in det) == sorted({w[4] for w in wins})
     assert sum(d["windows"] for d in det) == len(wins) == 3
+    # up: 6 bytes a slot; down: only the compacted rows and the offsets
     assert all(d["upload_bytes"] >= 6 * d["slots"]
-               and d["download_bytes"] >= 9 * d["slots"] for d in det)
+               and d["download_bytes"] == 8 * (d["windows"] + 1)
+               + 9 * d["matched"] + 36 * d["sat"] for d in det)
 
 
 def test_encode_bytes_equals_native_and_tpu_encoder(mixed, enc, nat,
@@ -220,12 +272,12 @@ def test_kernel_failure_propagates(mixed, enc, monkeypatch):
     """A failing match finder raises out of both entry points; nothing
     falls back to the native frontend or a host encoder."""
     def boom(*a, **kw):
-        raise RuntimeError("grouped_compact failed")
+        raise RuntimeError("match_rows failed")
 
-    monkeypatch.setattr(MF, "grouped_compact", boom)
-    with pytest.raises(RuntimeError, match="grouped_compact failed"):
+    monkeypatch.setattr(MF, "match_rows", boom)
+    with pytest.raises(RuntimeError, match="match_rows failed"):
         enc.encode_many(mixed)
-    with pytest.raises(RuntimeError, match="grouped_compact failed"):
+    with pytest.raises(RuntimeError, match="match_rows failed"):
         enc.encode_bytes(mixed[2])
 
 

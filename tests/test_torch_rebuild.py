@@ -167,3 +167,71 @@ def test_wrapper_checks_its_arguments():
              for k, v in args.items() if k != "n_out"}
     out, ok = CR.lz_rebuild(**empty)
     assert out.numel() == 0 and ok.numel() == 0
+
+
+def _padded(conts, L: int, n_out: int):
+    """The JAX padded layout of containers given as (literal bytes, rows
+    [(l, m, d), ...], n_raw)."""
+    R = max(len(c[1]) for c in conts)
+    lits = np.zeros((len(conts), L), np.uint8)
+    rows = np.zeros((len(conts), R, 3), np.int32)
+    for b, (lit, rw, _) in enumerate(conts):
+        lits[b, :len(lit)] = np.frombuffer(lit, np.uint8)
+        rows[b, :len(rw)] = rw
+    return lits, rows, np.array([c[2] for c in conts], np.int32), n_out
+
+
+def _fold_case(name: str):
+    """Containers whose match rows exercise the kernel's folded links:
+    d = 1, d = m - 1, d = m and d > m; a d = 1 row longer than a 4096-byte
+    tile; d <= 0 and d > match_start (both fail ok)."""
+    rng = np.random.default_rng(sum(map(ord, name)))
+    lit = bytes(rng.integers(0, 256, 64, dtype=np.uint8))
+    if name == "long_row":
+        return _padded([(lit[:3], [(3, 9000, 1)], 9003),
+                        (lit[:40], [(40, 9500, 37), (0, 3000, 13)], 12540)],
+                       64, 13000)
+    conts = []
+    for b in range(4):
+        rows, made = [(8, 0, 0)], 8
+        for _ in range(12):
+            m = int(rng.integers(2, 90))
+            d = {"d_1": 1, "d_m_minus_1": m - 1, "d_eq_m": m,
+                 "d_gt_m": m + int(rng.integers(1, 20)),
+                 "d_le_0": 1, "d_past_start": 1}[name]
+            d = max(1, min(d, made))
+            rows.append((int(rng.integers(0, 3)), m, d))
+            made += rows[-1][0] + m
+        if b == 1 and name == "d_le_0":
+            rows[5] = (rows[5][0], rows[5][1], 0)
+            rows[9] = (rows[9][0], rows[9][1], -4)
+        if b == 2 and name == "d_past_start":
+            rows[4] = (rows[4][0], rows[4][1], made + 50)
+        conts.append((lit[:8 + sum(r[0] for r in rows[1:])], rows, made))
+    return _padded(conts, 64, 2048)
+
+
+@pytest.mark.parametrize("name", ["d_1", "d_m_minus_1", "d_eq_m", "d_gt_m",
+                                  "long_row", "d_le_0", "d_past_start"])
+def test_lz_rebuild_flat_fold_cases_equal_jax(name):
+    lits, rows, n_raw, n_out = _fold_case(name)
+    want = _jax(lits, rows, n_raw, n_out)
+    assert want[1].all() == (name not in ("d_le_0", "d_past_start"))
+    assert want[1].any()
+    args = CR.from_jax_rebuild_args(lits, rows, n_raw, n_out)
+    _same(LR.lz_rebuild_flat(**args), want)
+    # through the wrapper: CPU tensors take the plain version
+    _same(CR.lz_rebuild(**args), want)
+
+
+def test_lz_rebuild_detail_counts_the_rounds():
+    """``detail`` gets the positions still pointing at a parent, before the
+    first round and after each: 13 links of a d = 2 run need 4 rounds."""
+    lits = np.zeros((1, 8), np.uint8)
+    lits[0, :3] = [7, 8, 9]
+    rows = np.array([[[3, 0, 0], [0, 13, 2]]], np.int32)
+    args = CR.from_jax_rebuild_args(lits, rows, np.array([16], np.int32), 16)
+    detail: dict = {}
+    out, ok = CR.lz_rebuild(**args, detail=detail)
+    assert bool(ok[0]) and detail["unresolved"] == [13, 11, 7, 0]
+    assert out.tolist() == [7, 8, 9] + [8, 9] * 6 + [8]
