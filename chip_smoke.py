@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode (host and device rebuild), both encode frontends and the probes once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving decode (host and device rebuild), both encode frontends, the multi-device paths and the probes once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -46,11 +46,25 @@ Phases, one line each; any failure exits non-zero and prints no result:
    (made by the native encoder), with both encode kernels launched;
    ``encode_bytes`` must do the same on the largest and a small input;
 8. encode_device: ``TorchEncoder("cuda", frontend="device").encode_many``
-   on the same raw inputs twice (warm-up, timed): every output must equal
-   its corpus container, with the grouped match kernel and both encode
-   kernels launched; the stage split, the windows per size, the bytes up
-   and down and the rate beside the native frontend's; ``encode_bytes`` on
-   the largest and a small input;
+   on the small mixed batch (warm-up), then on the same raw inputs (timed):
+   every output must equal its corpus container, with the grouped match
+   kernel and both encode kernels launched; the stage split, the windows
+   per size, the bytes up and down and the rate beside the native
+   frontend's; ``encode_bytes`` on the largest and a small input;
+8b. mesh: several devices (``parallel/mesh.py``), on every card when there
+   are two or more, else on ``cuda:0`` four times (the shards take turns on
+   the one card): ``parallel/dryrun.dryrun_multichip(4)`` on the card;
+   ``sharded_pallas_entropy_decode`` must equal the unsharded decode
+   kernels bit for bit on the batch's own kernel arguments;
+   ``TorchDecoder("cuda", mesh=...).decode_many`` twice on the batch
+   (warm-up, timed): every SHA-256 must match, no fallback, each decode
+   kernel launched once a shard, its rate and per-shard kernel ms beside
+   the single-device slice's; ``TorchEncoder("cuda", mesh=...)
+   .encode_many`` once on the raw inputs: every container must equal its
+   corpus container, the grouped match kernel launched once a shard for
+   each window size; with two cards or more, ``tools/demo_multihost
+   --device cuda --hosts 2`` (two processes over NCCL), else a line saying
+   it was not run;
 9. the kernels' JSON line (all nine, each with its time, its plain
    version's time and its bound: the larger of the bytes it must move over
    the card's memory rate and its operations over the card's peak rate,
@@ -99,6 +113,7 @@ PROBES = (
      "tools/microbench_vpu.py:112"),
 )
 CHECK_STEPS = {"probe_step": 64, "probe_chain": 16, "probe_tput": 16}
+MESH_ON_ONE_CARD = 4   # shards of the mesh phase when there is one card
 
 # The bound of a kernel (H100 SXM datasheet peak rates):
 # bytes at the device memory rate, operations at the 32-bit rate outside the
@@ -674,7 +689,9 @@ def encode_device_run(enc, pairs, native_gbps: float) -> dict:
     pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
     raws = [r for r, _ in pairs]
     raw_bytes = sum(map(len, raws))
-    enc.encode_many(raws)
+    # warm-up on the small mixed batch only (the mesh phase's encode takes
+    # the time a full warm-up took)
+    enc.encode_many([r for r, c in CP.small_batch(seed=1) if c != CP.EMPTY])
     torch.cuda.reset_peak_memory_stats()
     stats: dict = {}
     reset_launches()
@@ -724,6 +741,145 @@ def encode_device_run(enc, pairs, native_gbps: float) -> dict:
     return {"match_grouped": launches["match_grouped"]}
 
 
+def mesh_devices() -> tuple[list, str]:
+    """Every card when there are two or more, else ``cuda:0`` four times
+    (one card standing in for four), with a note of which."""
+    import torch
+    n = torch.cuda.device_count()
+    if n >= 2:
+        return [f"cuda:{i}" for i in range(n)], f"all {n} cards"
+    return ["cuda:0"] * MESH_ON_ONE_CARD, (
+        f"one card, cuda:0 {MESH_ON_ONE_CARD} times: the shards take turns "
+        f"on it")
+
+
+def mesh_run(pairs, default) -> None:
+    """The multi-device slice: the dry run, then the serving decode and the
+    device-frontend encode with a mesh, then, with two cards or more, two
+    processes over NCCL. ``default`` is the single-device slice's (stage
+    split, device events, wall) from this run."""
+    import torch
+    from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
+    from lzfse_rust_tpu_torch.ops import cuda_decode as KD
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    from lzfse_rust_tpu_torch.ops import match_find as MF
+    from lzfse_rust_tpu_torch.parallel.dryrun import dryrun_multichip
+    from lzfse_rust_tpu_torch.parallel.mesh import (
+        make_mesh, sharded_pallas_entropy_decode)
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    devs, which = mesh_devices()
+    mesh = make_mesh(devs)
+    t = time.perf_counter()
+    checked = dryrun_multichip(MESH_ON_ONE_CARD)
+    phase("mesh", True, f"mesh of {mesh.size} ({which}); dryrun_multichip"
+          f"({MESH_ON_ONE_CARD}) on the card: {checked} in "
+          f"{time.perf_counter() - t:.1f} s")
+
+    # the sharded decode kernels against the unsharded ones, on the batch's
+    # own kernel arguments
+    lit, lmd = TorchDecoder("cuda").kernel_args([c for _, c in pairs])
+    arrays = KD.to_jax_decode_args(lit, lmd)
+    import numpy as np
+    B = lit["tables"].shape[0]
+    pad = -B % mesh.size   # inert streams: no steps
+    arrays = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
+              for k, v in arrays.items()}
+    n_lit = int(((lit["num"].long() + 3) // 4).max())
+    n_lmd = int(lmd["num"].max())
+    got = sharded_pallas_entropy_decode(mesh, arrays, n_lit, n_lmd)
+    w_lit = KD.decode_literals(**KD.from_jax_decode_args(
+        "literals", arrays["u3_tabs"], arrays["lit_words"],
+        arrays["lit_states"], arrays["lit_pos"], arrays["lit_num"],
+        arrays["lit_tot"], device="cuda"))
+    w_lmd = KD.decode_lmds(**KD.from_jax_decode_args(
+        "lmds", arrays["v_tabs"], arrays["lmd_words"], arrays["lmd_states"],
+        arrays["lmd_pos"], arrays["lmd_num"], device="cuda"))
+    want = (w_lit[0], w_lmd[0], w_lmd[1], w_lit[1], w_lit[2], w_lmd[2],
+            w_lmd[3])
+    same = all(torch.equal(g.cuda(), w) for g, w in zip(got, want))
+    phase("mesh", same, f"sharded_pallas_entropy_decode over {mesh.size} "
+          f"shards == the unsharded kernels on the batch's {B} streams of "
+          f"each kind and {pad} inert ones ({want[0].numel()} literal words, "
+          f"{want[1].numel()} L/M/D rows): bit-exact={same}")
+    del got, want, w_lit, w_lmd, arrays, lit, lmd
+    torch.cuda.empty_cache()
+
+    # the serving decode with the mesh
+    dec = TorchDecoder("cuda", mesh=mesh)
+    sources = [c for _, c in pairs]
+    raw_bytes = sum(len(r) for r, _ in pairs)
+    warm: dict = {}
+    dec.decode_many(sources, warm)
+    stats: dict = {}
+    reset_launches()
+    t = time.perf_counter()
+    outs = dec.decode_many(sources, stats)
+    wall = time.perf_counter() - t
+    launches = dict(KD.launches)
+    bad = [i for i, ((raw, _), out) in enumerate(zip(pairs, outs))
+           if hashlib.sha256(out).digest() != hashlib.sha256(raw).digest()]
+    fallbacks = stats.get("fallbacks", 0) + warm.get("fallbacks", 0)
+    phase("mesh", not bad and fallbacks == 0
+          and all(n == mesh.size for n in launches.values()),
+          f"TorchDecoder(mesh=) decode: {len(outs)} containers, sha "
+          f"mismatches {len(bad)}, fallbacks {fallbacks}, launches "
+          f"{launches} (mesh size {mesh.size})")
+    det = stats["detail_device"]
+    d_split, d_detail, d_wall = default
+    print(f"[mesh] decode {raw_bytes} bytes in {wall * 1e3:.3f} ms = "
+          f"{raw_bytes / wall / 1e9:.4f} GB/s (single device, same run: "
+          f"{d_wall * 1e3:.3f} ms = {raw_bytes / d_wall / 1e9:.4f} GB/s); "
+          f"per-shard kernel ms {[round(x, 4) for x in det['shard_kernels_ms']]}"
+          f", kernels span {det['kernels_ms']:.4f} ms (single device "
+          f"{d_detail['kernels_ms']:.4f}), upload {det['upload_ms']:.4f} ms, "
+          f"gather (download) {det['download_ms']:.4f} ms (single device "
+          f"{d_detail['upload_ms']:.4f} / {d_detail['download_ms']:.4f}); "
+          f"stage split ms { {k: round(v * 1e3, 3) for k, v in stats.items() if isinstance(v, float)} }",
+          flush=True)
+
+    # the device-frontend encode with the mesh, once
+    pairs_e = [(r, c) for r, c in pairs if c != CP.EMPTY]
+    raws = [r for r, _ in pairs_e]
+    enc = TorchEncoder("cuda", mesh=mesh)
+    stats = {}
+    reset_launches()
+    t = time.perf_counter()
+    outs = enc.encode_many(raws, stats)
+    wall = time.perf_counter() - t
+    launches = {**MF.launches, **KE.launches}
+    n_sizes = len(stats["detail_match"])
+    bad = [i for i, ((_, c), out) in enumerate(zip(pairs_e, outs))
+           if out != c]
+    phase("mesh", not bad and enc.frontend == "device"
+          and launches["match_grouped"] == n_sizes * mesh.size
+          and all(n > 0 for n in launches.values()),
+          f"TorchEncoder(mesh=) encode: {len(outs)} sources, container "
+          f"mismatches {len(bad)}, launches {launches} ({n_sizes} window "
+          f"sizes x mesh size {mesh.size})")
+    dm = stats["detail_match"]
+    print(f"[mesh] encode {sum(map(len, raws))} bytes in {wall * 1e3:.3f} ms "
+          f"= {sum(map(len, raws)) / wall / 1e9:.4f} GB/s; match stage per "
+          f"window size (windows, sharded call ms, download ms) "
+          f"{[(d['N'], d['windows'], round(d['sharded_ms'], 3), round(d['download_ms'], 3)) for d in dm]}"
+          f"; stage split ms { {k: round(v * 1e3, 3) for k, v in stats.items() if isinstance(v, float)} }",
+          flush=True)
+
+    n_cards = torch.cuda.device_count()
+    if n_cards < 2:
+        print(f"[mesh] multi-process demo not run: it needs two CUDA devices "
+              f"(NCCL refuses two ranks on one card) and this machine has "
+              f"{n_cards}", flush=True)
+        return
+    r = subprocess.run([sys.executable, "-m",
+                        "lzfse_rust_tpu_torch.tools.demo_multihost",
+                        "--device", "cuda", "--hosts", "2"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=600)
+    rows = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    phase("mesh", r.returncode == 0 and len(rows) == 2
+          and all(x["ok"] for x in rows),
+          f"demo_multihost --device cuda --hosts 2 (NCCL): {rows or r.stderr[-2000:]}")
+
+
 def main() -> int:
     if not (ROOT / "lzfse_rust_tpu_torch").is_dir():
         print("chip_smoke: the package lzfse_rust_tpu_torch is not beside "
@@ -747,6 +903,7 @@ def main() -> int:
         enc_launches, native_gbps = encode_run(enc, pairs)
         launches.update(enc_launches)
         launches.update(encode_device_run(enc_dev, pairs, native_gbps))
+        mesh_run(pairs, default)
         for r in rows:
             r["launches"] = launches[r["name"]]
         rows += probe_rows

@@ -35,6 +35,11 @@ the final states, the checks and the output bytes come back. With
 Python parse, the decode tables and the stream scans as torch ops
 (``ops/table_build``, ``ops/fse_decode``), then either rebuild.
 
+With a ``mesh`` (``parallel/mesh.py``) step 3 uploads each shard's region
+of the staging buffer to its own device and step 4 runs both kernels on
+every shard (``parallel/mesh.launch_decode``); the outputs come back into
+the one host buffer in batch order, so step 5 is unchanged.
+
 ``device="cpu"`` runs the kernels' plain versions; it exists for the
 tests. A CUDA device without a card raises: there is no silent CPU path.
 """
@@ -57,6 +62,7 @@ from ..ops import cuda_rebuild as CR
 from ..ops import fse_decode as FD
 from ..ops import lz_rebuild as LR
 from ..ops import table_build as TB
+from ..parallel.mesh import Mesh, launch_decode
 from ..runtime.build import native_runtime
 from ..spec import container as spec_container
 from ..spec import fse as F
@@ -238,14 +244,24 @@ def download(outs, buf: torch.Tensor | None, cuda: bool):
     big enough; pinned, with ``non_blocking`` copies, from a card). Returns
     (buffer, numpy views shaped as ``outs``); on a card the views are valid
     once the stream has passed the copies."""
-    sizes = [t.numel() for t in outs]
-    buf = host_buffer(buf, sum(sizes), cuda)
+    return download_groups([[t] for t in outs], buf, cuda)
+
+
+def download_groups(groups, buf: torch.Tensor | None, cuda: bool):
+    """``download`` of groups of int32 tensors (a group's tensors may lie on
+    different devices): each group's tensors land one after another, so
+    its view is their concatenation along dim 0. Returns (buffer, one
+    numpy view per group)."""
+    buf = host_buffer(buf, sum(t.numel() for g in groups for t in g), cuda)
     host = buf.numpy()
     pieces, o = [], 0
-    for t, n in zip(outs, sizes):
-        buf[o:o + n].copy_(t.reshape(-1), non_blocking=cuda)
-        pieces.append(host[o:o + n].reshape(t.shape))
-        o += n
+    for g in groups:
+        start = o
+        for t in g:
+            n = t.numel()
+            buf[o:o + n].copy_(t.reshape(-1), non_blocking=cuda)
+            o += n
+        pieces.append(host[start:o].reshape(-1, *g[0].shape[1:]))
     return buf, pieces
 
 
@@ -275,6 +291,36 @@ def _add_ms(stats: dict | None, spans) -> None:
     det = stats.setdefault("detail_device", {})
     for key, a, b in spans:
         det[key] = det.get(key, 0.0) + a.elapsed_time(b)
+
+
+def _add_device_ms(stats: dict | None, devices, upload, kernels, ends,
+                   per_shard: bool) -> None:
+    """The decode stage's CUDA-event milliseconds into
+    ``stats["detail_device"]``: on each device, from its first shard's
+    upload to its last's (``upload_ms``), from its first shard's kernels
+    to its last's (``kernels_ms``), and from there to the end of its
+    downloads (``download_ms``), each the largest over the devices; with
+    ``per_shard``, each shard's own kernel milliseconds
+    (``shard_kernels_ms``)."""
+    if stats is None:
+        return
+    spans: dict = {}
+    for k, dev in enumerate(devices):
+        first, _ = spans.get(dev, (k, k))
+        spans[dev] = (first, k)
+    det = stats.setdefault("detail_device", {})
+    for key, ms in (
+            ("upload_ms", [upload[a][0].elapsed_time(upload[b][1])
+                           for a, b in spans.values()]),
+            ("kernels_ms", [kernels[a][0].elapsed_time(kernels[b][1])
+                            for a, b in spans.values()]),
+            ("download_ms", [kernels[b][1].elapsed_time(ends[dev])
+                             for dev, (_, b) in spans.items()])):
+        det[key] = det.get(key, 0.0) + max(ms)
+    if per_shard:
+        shard_ms = [a.elapsed_time(b) for a, b in kernels]
+        old = det.get("shard_kernels_ms", [0.0] * len(shard_ms))
+        det["shard_kernels_ms"] = [x + y for x, y in zip(old, shard_ms)]
 
 
 def _walk_parts(src: bytes, sub: np.ndarray) -> list:
@@ -315,17 +361,19 @@ def copy_segments(base: int, spans, pool) -> list[bytes]:
 
 @dataclass
 class _Batch:
-    """One call's kernel arguments (device tensors) and the host maps from
-    block index to sorted slot and dense output offset."""
-    lit: dict
-    lmd: dict
+    """One call's kernel arguments (device tensors, one pair of dicts per
+    shard) and the host maps from block index to sorted slot and dense
+    output offset (over the whole sorted batch: the shards' outputs
+    concatenated)."""
+    lit: list
+    lmd: list
     sl_n: np.ndarray
     sm_n: np.ndarray
     off_l: np.ndarray
     off_m: np.ndarray
     lit_n: np.ndarray   # per block, in block order: literals, L/M/D rows
     lmd_n: np.ndarray
-    upload: tuple | None = None   # CUDA events around the upload
+    upload: list | None = None   # per shard, CUDA events around its upload
 
 
 class TorchDecoder:
@@ -333,7 +381,7 @@ class TorchDecoder:
     kernels of ``ops/cuda_decode.py`` (or their plain versions on CPU)."""
 
     def __init__(self, device="cuda", use_kernels: bool = True,
-                 use_native_rebuild: bool = True):
+                 use_native_rebuild: bool = True, mesh=None):
         """``use_kernels`` is the counterpart of ``TpuDecoder``'s
         ``use_pallas``: True decodes the FSE streams in the CUDA kernels of
         ``ops/cuda_decode.py`` after the native container walk; False runs
@@ -343,7 +391,16 @@ class TorchDecoder:
         (``native.flatten_rebuild``); False flattens and rebuilds on the
         device (``ops/lz_rebuild.flatten_pieces``, then the CUDA kernel of
         ``ops/cuda_rebuild.py``), so only the output bytes come back. The
-        defaults are the serving path."""
+        defaults are the serving path.
+
+        ``mesh`` (``parallel/mesh.make_mesh``, devices of ``device``'s
+        type): the size-sorted block batch, padded with inert slots to a
+        multiple of the mesh size, splits into contiguous shards; each
+        shard's slice of the staging buffer goes to its device, where both
+        kernels decode it (``parallel/mesh.launch_decode``, the launch stage
+        of ``sharded_pallas_entropy_decode``), and the outputs come back
+        into one host buffer in batch order. The host stages are those of
+        the default path, which is the only one with a mesh."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -353,23 +410,35 @@ class TorchDecoder:
             raise ValueError(f"TorchDecoder: unsupported device {device!r}")
         self.use_kernels = bool(use_kernels)
         self.use_native_rebuild = bool(use_native_rebuild)
+        if mesh is not None:
+            if not (self.use_kernels and self.use_native_rebuild):
+                raise ValueError("TorchDecoder: a mesh shards the kernel "
+                                 "path; use_kernels and use_native_rebuild "
+                                 "must be True")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"TorchDecoder: the mesh's devices "
+                                 f"{mesh.devices} are not all of type "
+                                 f"{self.device.type!r}")
+        self.mesh = mesh
+        # a decoder without a mesh is a one-shard mesh of its device
+        self._mesh = mesh if mesh is not None else Mesh((self.device,))
         self._native = native_runtime()
         self._native.alloc_reuse()  # warm-page reuse for output bytes
         self._stage: torch.Tensor | None = None   # host staging, int32
-        self._stage_free = None   # event: the last upload from _stage is done
+        self._stage_free = []   # events: the last uploads from _stage are done
         self._down: torch.Tensor | None = None    # host download, int32
         self._out_pin: torch.Tensor | None = None  # pinned output bytes
         self._pool = None   # threads that copy output bytes out of it
-        self._side = None   # CUDA stream of the L/M/D kernel
+        self._side = {}   # per device, the CUDA stream of the L/M/D kernel
 
     # -- host buffers ----------------------------------------------------
 
     def _staging(self, n_words: int) -> torch.Tensor:
-        # the previous call's upload may still read this buffer: wait for
-        # it before refilling
-        if self._stage_free is not None:
-            self._stage_free.synchronize()
-            self._stage_free = None
+        # the previous call's uploads may still read this buffer: wait for
+        # them before refilling
+        for ev in self._stage_free:
+            ev.synchronize()
+        self._stage_free = []
         self._stage = host_buffer(self._stage, n_words,
                                   self.device.type == "cuda")
         return self._stage
@@ -396,6 +465,9 @@ class TorchDecoder:
 
     def _prep(self, sources, desc, w16, clock: _Clock) -> _Batch:
         nb = len(desc)
+        n_sh = self._mesh.size
+        S = -(-nb // n_sh)   # slots a shard
+        B = S * n_sh         # the sorted batch; slots past nb are inert
         lit_n = desc[:, 1].astype(np.int64)
         lmd_n = desc[:, 2].astype(np.int64)
         # size-sorted slots: block i decodes in slot sl_n[i] / sm_n[i]
@@ -405,136 +477,165 @@ class TorchDecoder:
         sm_n = np.argsort(perm_m).astype(np.int32)
         lens_l = desc[:, 6].astype(np.int64)
         lens_m = desc[:, 8].astype(np.int64)
-        chunks_l = (lens_l + _ALIGN - 1) // _ALIGN
-        chunks_m = (lens_m + _ALIGN - 1) // _ALIGN
-        cum = np.cumsum(np.concatenate((chunks_l, chunks_m)))
-        start = np.concatenate(([0], cum[:-1])) * _W   # word offsets
-        n_cat = int(cum[-1]) * _W
-        off_l, n_lit_out = K.out_offsets(K.literal_counts(lit_n)[perm_l])
-        off_m, n_lmd_out = K.out_offsets(lmd_n[perm_m])
-        if n_cat + (2 * 384 + 7 + len(_ROWS)) * nb >= 2**31:
-            raise ValueError("batch too large for int32 word offsets")
+        # payload chunks, shard by shard: each shard's literal payloads,
+        # then its L/M/D payloads, each in block order; word offsets count
+        # from the shard's first chunk
+        chunks = (np.concatenate((lens_l, lens_m)) + _ALIGN - 1) // _ALIGN
+        shard = np.concatenate((sl_n, sm_n)) // S
+        order = np.argsort(shard, kind="stable")
+        cum = np.cumsum(chunks[order])
+        start = np.empty(2 * nb, np.int64)
+        start[order] = cum - chunks[order]
+        n_cat = np.bincount(shard, weights=chunks, minlength=n_sh).astype(
+            np.int64) * _W
+        start = start * _W - np.concatenate(([0], np.cumsum(n_cat)[:-1]))[
+            shard]
+        counts_l = np.zeros(B, np.int64)
+        counts_l[:nb] = K.literal_counts(lit_n)[perm_l]
+        counts_m = np.zeros(B, np.int64)
+        counts_m[:nb] = lmd_n[perm_m]
+        off_l, _ = K.out_offsets(counts_l)
+        off_m, _ = K.out_offsets(counts_m)
 
-        # staging layout (int32 words):
-        #   [payload cat | u3 (nb,384) | v (nb,384) | lit states (nb,4) |
-        #    lmd states (nb,3) | rows (len(_ROWS), nb)]
-        spans = {"cat": n_cat, "u3": nb * 384, "v": nb * 384,
-                 "lit_states": nb * 4, "lmd_states": nb * 3,
-                 "rows": len(_ROWS) * nb}
-        at, o = {}, 0
-        for key, n in spans.items():
-            at[key] = (o, o + n)
-            o += n
+        # staging layout (int32 words), one region a shard:
+        #   [payload cat | u3 (S,384) | v (S,384) | lit states (S,4) |
+        #    lmd states (S,3) | rows (len(_ROWS), S)]
+        spans = {"u3": S * 384, "v": S * 384, "lit_states": S * 4,
+                 "lmd_states": S * 3, "rows": len(_ROWS) * S}
+        regions, o = [], 0
+        for k in range(n_sh):
+            at = {"cat": (o, o + int(n_cat[k]))}
+            o += int(n_cat[k])
+            for key, n in spans.items():
+                at[key] = (o, o + n)
+                o += n
+            regions.append(at)
+        if o >= 2**31:
+            raise ValueError("batch too large for int32 word offsets")
         stage = self._staging(o)
         host = stage.numpy()
 
-        def view(key, shape):
-            a, b = at[key]
-            return host[a:b].reshape(shape)
+        def views(key, shape):
+            return [host[slice(*at[key])].reshape(shape) for at in regions]
 
-        u3 = view("u3", (nb, 384))
-        v = view("v", (nb, 384))
+        def scatter(shards, slots, values):
+            """Write ``values`` at the batch slots ``slots``: slot k * S + j
+            is row j of shard k's array ``shards[k]``."""
+            for k, view in enumerate(shards):
+                here = slots // S == k
+                view[slots[here] - k * S] = values[here]
+
+        u3s, vs = views("u3", (S, 384)), views("v", (S, 384))
+        if n_sh == 1:
+            u3, v = u3s[0], vs[0]
+        else:
+            u3 = np.empty((B, 384), np.int32)
+            v = np.empty((B, 384), np.int32)
         self._native.build_tables3_batch(
             np.ascontiguousarray(w16), sm_n, sl_n, v, u3,
             np.empty(nb, np.int32))
+        if n_sh > 1:
+            for k in range(n_sh):
+                u3s[k][:] = u3[k * S:(k + 1) * S]
+                vs[k][:] = v[k * S:(k + 1) * S]
         clock.mark("prep_tables")
-        a, b = at["cat"]
+        base = np.array([at["cat"][0] for at in regions], np.int64)[shard]
         self._native.gather_payloads(
-            sources, desc, start[:nb] * 4, start[nb:] * 4,
-            host[a:b].view(np.uint8))
+            sources, desc, (base[:nb] + start[:nb]) * 4,
+            (base[nb:] + start[nb:]) * 4, host.view(np.uint8))
         clock.mark("prep_gather")
-        ls = view("lit_states", (nb, 4))
-        ls[sl_n] = desc[:, 9:13]
-        ms = view("lmd_states", (nb, 3))
-        ms[sm_n] = desc[:, 13:16]
-        ms[:, 1] += C.L_STATES
-        ms[:, 2] += C.L_STATES + C.M_STATES
-        rows = dict(zip(_ROWS, view("rows", (len(_ROWS), nb))))
-        rows["lit_pos"][sl_n] = lens_l * 8 - desc[:, 3]
-        rows["lmd_pos"][sm_n] = lens_m * 8 - desc[:, 4]
-        rows["lit_num"][sl_n] = lit_n
-        rows["lmd_num"][sm_n] = lmd_n
-        rows["lit_off"][sl_n] = start[:nb]
-        rows["lmd_off"][sm_n] = start[nb:]
-        rows["lit_len"][sl_n] = chunks_l * _W
-        rows["lmd_len"][sm_n] = chunks_m * _W
-        # literal latch thresholds: the U-weight totals
-        rows["tot"][sl_n] = w16[:, C.D_TOP:C.U_TOP].sum(axis=1, dtype=np.int64)
-        rows["lit_out"][:] = off_l
-        rows["lmd_out"][:] = off_m
+        scatter(views("lit_states", (S, 4)), sl_n, desc[:, 9:13])
+        scatter(views("lmd_states", (S, 3)), sm_n, desc[:, 13:16]
+                + (0, C.L_STATES, C.L_STATES + C.M_STATES))
+        rows = views("rows", (len(_ROWS), S))
+        for k, r in enumerate(rows):
+            r[:] = 0   # inert slots decode nothing
+            r[_ROWS.index("lit_out")] = off_l[k * S:(k + 1) * S] - off_l[k * S]
+            r[_ROWS.index("lmd_out")] = off_m[k * S:(k + 1) * S] - off_m[k * S]
+        for key, slots, values in (
+                ("lit_pos", sl_n, lens_l * 8 - desc[:, 3]),
+                ("lmd_pos", sm_n, lens_m * 8 - desc[:, 4]),
+                ("lit_num", sl_n, lit_n), ("lmd_num", sm_n, lmd_n),
+                ("lit_off", sl_n, start[:nb]), ("lmd_off", sm_n, start[nb:]),
+                ("lit_len", sl_n, chunks[:nb] * _W),
+                ("lmd_len", sm_n, chunks[nb:] * _W),
+                # literal latch thresholds: the U-weight totals
+                ("tot", sl_n, w16[:, C.D_TOP:C.U_TOP].sum(axis=1,
+                                                         dtype=np.int64))):
+            scatter([r[_ROWS.index(key)] for r in rows], slots, values)
         clock.mark("prep_small")
 
-        upload = None
-        if self.device.type == "cuda":
-            upload = (torch.cuda.Event(enable_timing=True),
-                      torch.cuda.Event(enable_timing=True))
-            upload[0].record()
-        dev = stage[:o].to(self.device, non_blocking=True)
-        if upload is not None:
-            upload[1].record()
-            self._stage_free = upload[1]
+        lit, lmd, upload = [], [], []
+        for k, (dev, at) in enumerate(zip(self._mesh.devices, regions)):
+            a, b = at["cat"][0], at["rows"][1]
+            ev = None
+            if dev.type == "cuda":
+                with torch.cuda.device(dev):
+                    ev = (torch.cuda.Event(enable_timing=True),
+                          torch.cuda.Event(enable_timing=True))
+                    ev[0].record()
+                    d = stage[a:b].to(dev, non_blocking=True)
+                    ev[1].record()
+                self._stage_free.append(ev[1])
+            else:
+                d = stage[a:b].to(dev)
+            upload.append(ev)
+
+            def dview(key, shape):
+                x, y = at[key]
+                return d[x - a:y - a].view(shape)
+
+            words = dview("cat", (-1,))
+            drows = dict(zip(_ROWS, dview("rows", (len(_ROWS), S))))
+            n_out_l = int(counts_l[k * S:(k + 1) * S].sum())
+            n_out_m = int(counts_m[k * S:(k + 1) * S].sum())
+            lit.append(dict(tables=dview("u3", (S, 384)), words=words,
+                            word_off=drows["lit_off"],
+                            word_len=drows["lit_len"],
+                            states=dview("lit_states", (S, 4)),
+                            pos=drows["lit_pos"], num=drows["lit_num"],
+                            tot=drows["tot"], out_off=drows["lit_out"],
+                            n_out=n_out_l))
+            lmd.append(dict(tables=dview("v", (S, 384)), words=words,
+                            word_off=drows["lmd_off"],
+                            word_len=drows["lmd_len"],
+                            states=dview("lmd_states", (S, 3)),
+                            pos=drows["lmd_pos"], num=drows["lmd_num"],
+                            out_off=drows["lmd_out"], n_out=n_out_m))
         clock.mark("prep_upload")
-
-        def dview(key, shape):
-            a, b = at[key]
-            return dev[a:b].view(shape)
-
-        words = dview("cat", (n_cat,))
-        drows = dict(zip(_ROWS, dview("rows", (len(_ROWS), nb))))
-        lit = dict(tables=dview("u3", (nb, 384)), words=words,
-                   word_off=drows["lit_off"], word_len=drows["lit_len"],
-                   states=dview("lit_states", (nb, 4)),
-                   pos=drows["lit_pos"], num=drows["lit_num"],
-                   tot=drows["tot"], out_off=drows["lit_out"],
-                   n_out=n_lit_out)
-        lmd = dict(tables=dview("v", (nb, 384)), words=words,
-                   word_off=drows["lmd_off"], word_len=drows["lmd_len"],
-                   states=dview("lmd_states", (nb, 3)),
-                   pos=drows["lmd_pos"], num=drows["lmd_num"],
-                   out_off=drows["lmd_out"], n_out=n_lmd_out)
         return _Batch(lit, lmd, sl_n, sm_n, off_l.astype(np.int64),
-                      off_m.astype(np.int64), lit_n, lmd_n, upload)
+                      off_m.astype(np.int64), lit_n, lmd_n,
+                      upload if self.device.type == "cuda" else None)
 
     def _launch(self, batch: _Batch):
-        """Enqueue both kernels. Returns their device outputs (literal words,
-        lit states, lit pos, lm, d, lmd states, lmd pos) and, on a card,
-        CUDA events before and after them."""
-        if self.device.type != "cuda":
-            return (*K.decode_literals(**batch.lit),
-                    *K.decode_lmds(**batch.lmd)), None
-        # neither kernel reads the other's output: the L/M/D kernel runs on
-        # a second stream, joined back before anything reads it, so the
-        # kernels take about the longer of the two, not their sum
-        main = torch.cuda.current_stream(self.device)
-        if self._side is None:
-            self._side = torch.cuda.Stream(self.device)
-        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
-        ev[0].record(main)
-        self._side.wait_stream(main)
-        lit_outs = K.decode_literals(**batch.lit)
-        with torch.cuda.stream(self._side):
-            lmd_outs = K.decode_lmds(**batch.lmd)
-        main.wait_stream(self._side)
-        for t in lmd_outs:
-            t.record_stream(main)
-        ev[1].record(main)
-        return (*lit_outs, *lmd_outs), ev
+        """Enqueue both kernels on every shard (``parallel/mesh.
+        launch_decode``). Returns per shard its device outputs (literal
+        words, lit states, lit pos, lm, d, lmd states, lmd pos) and its
+        CUDA events before and after its kernels (None on the CPU)."""
+        return launch_decode(self._mesh, list(zip(batch.lit, batch.lmd)),
+                             self._side)
 
     def _device(self, batch: _Batch, stats: dict | None):
-        """Run both kernels and bring their results back. Returns host
-        arrays (literal bytes, lm, d, lit states, lit pos, lmd states,
-        lmd pos)."""
+        """Run both kernels on every shard and bring their results back,
+        each output's shards concatenated in batch order. Returns host
+        arrays (literal bytes, lm, d, lit states, lit pos, lmd states, lmd
+        pos)."""
         cuda = self.device.type == "cuda"
-        outs, ev = self._launch(batch)
+        launched = self._launch(batch)
         # lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp
-        self._down, pieces = download(outs, self._down, cuda)
+        self._down, pieces = download_groups(
+            list(zip(*(outs for outs, _ in launched))), self._down, cuda)
         if cuda:
-            ev.append(torch.cuda.Event(enable_timing=True))
-            ev[2].record()
-            ev[2].synchronize()
-            _add_ms(stats, (("upload_ms", *batch.upload),
-                            ("kernels_ms", ev[0], ev[1]),
-                            ("download_ms", ev[1], ev[2])))
+            evs = [ev for _, ev in launched]
+            ends = {}
+            for dev in self._mesh.devices:
+                if dev not in ends:
+                    ends[dev] = torch.cuda.Event(enable_timing=True)
+                    ends[dev].record(torch.cuda.current_stream(dev))
+            for ev in ends.values():
+                ev.synchronize()
+            _add_device_ms(stats, self._mesh.devices, batch.upload, evs,
+                           ends, self.mesh is not None)
         lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp = pieces
         return lit.view(np.uint8), lm, d, lit_fs, lit_fp, lmd_fs, lmd_fp
 
@@ -615,7 +716,9 @@ class TorchDecoder:
             none = (np.zeros(0, np.int64),) * 2
             return ((z(0), z(0), torch.zeros(0, dtype=torch.uint8, device=dev),
                      none, none), (z(0, 4), z(0), z(0, 3), z(0)), None)
-        (lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp), ev = self._launch(batch)
+        # one shard: only the default path takes a mesh
+        [((lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp), ev)] = \
+            self._launch(batch)
         sl = torch.from_numpy(batch.sl_n).to(dev).long()
         sm = torch.from_numpy(batch.sm_n).to(dev).long()
         dense = (lm, d, lit.view(torch.uint8),
@@ -727,7 +830,7 @@ class TorchDecoder:
         self._rebuild_on_device(sources, results, ids, conts, cont_nraw[ids],
                                 dense, states, stats, clock)
         if ev is not None:
-            _add_ms(stats, (("upload_ms", *batch.upload),
+            _add_ms(stats, (("upload_ms", *batch.upload[0]),
                             ("kernels_ms", ev[0], ev[1])))
         return results
 
@@ -862,9 +965,11 @@ class TorchDecoder:
         (``parse``, ``prep``, ``device``, ``flatten``, ``rebuild``), the
         prep sub-stages under ``detail_prep`` (kernel path), on a card the
         CUDA-event milliseconds under ``detail_device`` (the upload, the
-        kernels and the download; with the device rebuild also the flatten,
-        the rebuild and the output bytes' download, ``out_download_ms``),
-        and the count of spec-layer ``fallbacks``. Not re-entrant: the
+        kernels and the download, with a mesh each the longest over its
+        devices, and each shard's kernels under ``shard_kernels_ms``; with
+        the device rebuild also the flatten, the rebuild and the output
+        bytes' download, ``out_download_ms``), and the count of spec-layer
+        ``fallbacks``. Not re-entrant: the
         staging buffers belong to the decoder."""
         clock = _Clock(stats)
         if not self.use_kernels:
@@ -885,11 +990,14 @@ class TorchDecoder:
     def kernel_args(self, sources: list[bytes]) -> tuple[dict, dict]:
         """The two kernels' arguments for a batch, on this decoder's device:
         ``(decode_literals kwargs, decode_lmds kwargs)``, as
-        ``decode_many`` passes them."""
+        ``decode_many`` passes them (a decoder without a mesh)."""
+        if self.mesh is not None:
+            raise ValueError("kernel_args: a mesh decoder has a pair of "
+                             "arguments per shard")
         _, (batch, *_rest) = self._front(sources, None, _Clock(None))
         if batch is None:
             raise ValueError("the batch holds no FSE block")
-        return batch.lit, batch.lmd
+        return batch.lit[0], batch.lmd[0]
 
     def flatten_inputs(self, sources: list[bytes]):
         """What the device flatten of ``decode_many`` with

@@ -48,7 +48,9 @@ and emitted as above. ``encode_many`` runs, per stage:
 3. matchfind: per N, one upload of the windows, one launch of the grouped
    match kernel (``ops/match_find.match_rows``), which compacts the
    matched slots' winners and the saturated slots' candidate columns on
-   the device, and one download of those rows;
+   the device, and one download of those rows (with a ``mesh``, the
+   windows, padded with inert ones to a multiple of the mesh size, split
+   into a shard a device: ``parallel/mesh.sharded_grouped_match``);
 4. arbitrate: saturated slots are re-extended exactly on the host
    (``_arbitrate_window``); matched slots come from the download;
 5. merge: per source, the windows' rows are joined, extended backwards
@@ -77,6 +79,7 @@ from ..base.errors import LzfseError
 from ..ops import cuda_encode as K
 from ..ops import match_find as MF
 from ..ops.fse_encode import build_encode_tables
+from ..parallel.mesh import sharded_grouped_match
 from ..runtime.build import native_runtime
 from ..spec import fse as F
 from ..spec.match_find import MatchStream, _lcp_backward, _lcp_forward
@@ -255,15 +258,28 @@ class _Pool:
         return tuple(self.a[k] for k, _, _ in _POOL[:9])
 
 
+# the default of ``frontend``: "native", or "device" with a mesh
+_DEFAULT_FRONTEND = object()
+
+
 class TorchEncoder:
     """Batched container encoder whose tANS emission runs in the CUDA
     kernels of ``ops/cuda_encode.py`` (or their plain versions on CPU).
 
     ``frontend`` picks the match finder: ``"native"`` (the default, the
     native history-table frontend per source) or ``"device"`` (windowed
-    match finding in the kernel of ``ops/match_find.py``)."""
+    match finding in the kernel of ``ops/match_find.py``, on several
+    devices with a ``mesh``)."""
 
-    def __init__(self, device="cuda", frontend: str = "native"):
+    def __init__(self, device="cuda", frontend: str = _DEFAULT_FRONTEND,
+                 mesh=None):
+        """``mesh`` (``parallel/mesh.make_mesh``, devices of ``device``'s
+        type): the device frontend's window batch of each window size,
+        padded with inert windows to a multiple of the mesh size, splits
+        into contiguous shards, each matched on its device
+        (``parallel/mesh.sharded_grouped_match``); the emission stays on
+        ``device``. A mesh implies ``frontend="device"``; without one the
+        default frontend is ``"native"``."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -271,10 +287,22 @@ class TorchEncoder:
                                    "but CUDA is not available")
         elif self.device.type != "cpu":
             raise ValueError(f"TorchEncoder: unsupported device {device!r}")
+        if frontend is _DEFAULT_FRONTEND:
+            frontend = "native" if mesh is None else "device"
         if frontend not in FRONTENDS:
             raise ValueError(f"TorchEncoder: frontend must be one of "
                              f"{FRONTENDS}, got {frontend!r}")
+        if mesh is not None:
+            if frontend != "device":
+                raise ValueError("TorchEncoder: a mesh shards the device "
+                                 "frontend; frontend='native' has no "
+                                 "device stage to shard")
+            if any(d.type != self.device.type for d in mesh.devices):
+                raise ValueError(f"TorchEncoder: the mesh's devices "
+                                 f"{mesh.devices} are not all of type "
+                                 f"{self.device.type!r}")
         self.frontend = frontend
+        self.mesh = mesh
         self._native = native_runtime()
         self._pool: _Pool | None = None
         self._pool_free = None   # event: the last upload from _pool is done
@@ -553,18 +581,22 @@ class TorchEncoder:
         return _parse_blocks(self._native.select_blocks(src, rows))
 
     def _window_inputs(self, fulls: dict, wins: list, N: int,
-                       vn: bool) -> dict:
+                       vn: bool, n_rows: int | None = None) -> dict:
         """Host tensors (pinned for a card, reused across calls) of
         ``match_rows``'s arguments for windows of size N: each window's
         bytes, zero-padded to N, and its positions grouped by hash bucket
-        (``native.match_group``, on a host thread pool)."""
+        (``native.match_group``, on a host thread pool). Rows past the
+        windows, up to ``n_rows``, are inert, as the JAX encoder pads a
+        mesh's batch: zero bytes, ``n_real`` 4, an empty payload range, the
+        identity order and no candidate bits."""
         B = len(wins)
-        t = {"pads": self._host("pads", (B, N), torch.uint8),
-             "n_reals": self._host("n_reals", (B,), torch.int32),
-             "los": self._host("los", (B,), torch.int32),
-             "his": self._host("his", (B,), torch.int32),
-             "orders": self._host("orders", (B, N), torch.int32),
-             "oks": self._host("oks", (B, N), torch.uint8)}
+        R = B if n_rows is None else n_rows
+        t = {"pads": self._host("pads", (R, N), torch.uint8),
+             "n_reals": self._host("n_reals", (R,), torch.int32),
+             "los": self._host("los", (R,), torch.int32),
+             "his": self._host("his", (R,), torch.int32),
+             "orders": self._host("orders", (R, N), torch.int32),
+             "oks": self._host("oks", (R, N), torch.uint8)}
         a = {k: v.numpy() for k, v in t.items()}
 
         def group(r):
@@ -577,6 +609,11 @@ class TorchEncoder:
                 a["pads"][r], n, vn)
 
         _map(group, range(B))
+        a["pads"][B:] = 0
+        a["n_reals"][B:] = 4
+        a["los"][B:] = a["his"][B:] = 0
+        a["orders"][B:] = np.arange(N, dtype=np.int32)
+        a["oks"][B:] = 0
         return t
 
     def _windows_compact_grouped(self, fulls: dict, wins: list, vn: bool,
@@ -595,22 +632,34 @@ class TorchEncoder:
         down, the seconds of its three stages (``win_prep_s``,
         ``matchfind_s``, ``arbitrate_s``) and, on a card, the CUDA-event ms
         of the upload, the kernel with its totals' read, and the
-        download."""
+        download; with a mesh, in place of the first two, the whole
+        sharded call (``sharded_ms``: every shard's upload and kernel, the
+        totals' reads, the rows' gather on the first device)."""
         clock = clock or _Clock(stats)
         cuda = self.device.type == "cuda"
         out: dict = {}
         for N, idxs in _by_n(wins):
             B = len(idxs)
-            host = self._window_inputs(fulls, [wins[k] for k in idxs], N, vn)
+            n_rows = B if self.mesh is None else _round_up(B, self.mesh.size)
+            host = self._window_inputs(fulls, [wins[k] for k in idxs], N, vn,
+                                       n_rows)
             prep_s = clock.mark("win_prep")
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
                 ev[0].record()
-            dev = {k: v.to(self.device, non_blocking=True)
-                   for k, v in host.items()}
-            if cuda:
-                ev[1].record()
-            rows = MF.match_rows(**dev, vn=vn)
+            if self.mesh is None:
+                dev = {k: v.to(self.device, non_blocking=True)
+                       for k, v in host.items()}
+                if cuda:
+                    ev[1].record()
+                rows = MF.match_rows(**dev, vn=vn)
+                del dev
+            else:
+                # every shard uploads its windows and launches before any
+                # total is read; the rows come back on the first device
+                if cuda:
+                    ev[1].record()
+                rows = sharded_grouped_match(self.mesh, **host, vn=vn)
             if cuda:
                 ev[2].record()
                 down = [self._host(f"down{j}", tuple(x.shape), x.dtype)
@@ -622,7 +671,7 @@ class TorchEncoder:
             else:
                 down = rows
             offs, matched, m_len, sat = (x.numpy() for x in down)
-            del dev, rows
+            del rows
             find_s = clock.mark("matchfind")
             orders = host["orders"].numpy()
             for r, k in enumerate(idxs):
@@ -650,9 +699,15 @@ class TorchEncoder:
                            offs, matched, m_len, sat)),
                        "win_prep_s": prep_s, "matchfind_s": find_s,
                        "arbitrate_s": arb_s}
-                if cuda:
+                if cuda and self.mesh is None:
                     det.update(upload_ms=ev[0].elapsed_time(ev[1]),
                                kernel_ms=ev[1].elapsed_time(ev[2]),
+                               download_ms=ev[2].elapsed_time(ev[3]))
+                elif cuda:
+                    # on the first device: the whole sharded call (every
+                    # shard's upload and kernel, the totals' reads, the
+                    # rows' gather), then the download
+                    det.update(sharded_ms=ev[1].elapsed_time(ev[2]),
                                download_ms=ev[2].elapsed_time(ev[3]))
                 stats.setdefault("detail_match", []).append(det)
         return out

@@ -326,6 +326,36 @@ def from_jax_decode_args(kind: str, tables, win_words, init_states, init_pos,
     return args
 
 
+def to_jax_decode_args(lit: dict, lmd: dict) -> dict:
+    """The inverse of ``from_jax_decode_args`` for a pair of the port's
+    argument dicts (``decode_literals``, ``decode_lmds``): the JAX kernels'
+    arguments, numpy, under the keys of ``parallel/mesh.
+    sharded_pallas_entropy_decode``. Stream b's words become row b of a
+    (B, W) array, zero past its ``word_len``; W is the longest stream."""
+    out = {}
+    for args, tab, pre in ((lit, "u3_tabs", "lit"), (lmd, "v_tabs", "lmd")):
+        a = {k: v.cpu().numpy() if torch.is_tensor(v) else v
+             for k, v in args.items()}
+        B = a["tables"].shape[0]
+        W = max(int(a["word_len"].max()) if B else 0, 1)
+        col = np.arange(W)
+        idx = a["word_off"][:, None].astype(np.int64) + col
+        src = a["words"] if a["words"].size else np.zeros(1, np.int32)
+        keep = (col < a["word_len"][:, None]) & (idx < a["words"].size)
+        words = np.where(keep, src[np.where(keep, idx, 0)], 0)
+
+        def lanes(x):
+            return np.repeat(x[:, None], 128, 1).astype(np.int32)
+
+        states = np.zeros((B, 128), np.int32)
+        states[:, :a["states"].shape[1]] = a["states"]
+        out.update({tab: a["tables"], f"{pre}_words": words.astype(np.int32),
+                    f"{pre}_states": states, f"{pre}_pos": lanes(a["pos"]),
+                    f"{pre}_num": lanes(a["num"])})
+    out["lit_tot"] = lit["tot"].cpu().numpy()
+    return out
+
+
 def from_jax_decode_outputs(kind: str, outs, num) -> tuple:
     """The JAX kernels' results in the port's layout (numpy): padded
     (B, n) rows become dense arrays, (B, 128) states and positions become

@@ -1,5 +1,5 @@
 """Grouped match finding: the CUDA kernel, its plain version, and the gather
-of the saturated slots' candidate columns.
+of the saturated slots' candidate columns; and the sorted match finder.
 
 Counterpart of ``lzfse_rust_tpu/ops/match_find_tpu.py``'s sort-free path
 (``find_matches_grouped_compact`` and ``take_sat_cols``). The host has
@@ -42,7 +42,13 @@ On a CUDA device ``match_rows`` launches the kernel (``csrc/match_find.cu``)
 or raises; only for CPU tensors does it run its plain version,
 ``match_rows_ref``: ``grouped_compact_ref``, then ``take_sat_cols`` on the
 saturated slots, then the compaction as torch ops. ``launches`` counts
-kernel launches.
+kernel launches; ``match_rows_launch`` and ``match_rows_finish`` split it
+into the launch and the read of the totals, so that several devices can be
+started first.
+
+The sorted match finder (``find_matches_device``, ``find_matches_compact``:
+the JAX package's argsort path) groups each window by a stable sort on the
+device instead, as torch ops; it serves ``parallel/mesh.sharded_match_find``.
 """
 
 from __future__ import annotations
@@ -111,6 +117,16 @@ def match_rows(pads, n_reals, los, his, orders, oks, vn: bool):
     compaction of the matched and saturated slots for a batch of windows.
     Returns ``(offsets, matched, m_len, sat)`` (see the module docstring);
     on a card it reads the totals back (one sync) to size them."""
+    return match_rows_finish(match_rows_launch(pads, n_reals, los, his,
+                                               orders, oks, vn))
+
+
+def match_rows_launch(pads, n_reals, los, his, orders, oks, vn: bool):
+    """The enqueue half of ``match_rows``: on a card it launches the kernel
+    and returns its outputs at full capacity, unread, so that several
+    devices can be started before any total is read; on the CPU it returns
+    the plain version's finished result. ``match_rows_finish`` takes
+    either."""
     dev, B, N = _validate(dict(pads=pads, n_reals=n_reals, los=los, his=his,
                                orders=orders, oks=oks))
     if dev.type == "cpu":
@@ -138,6 +154,13 @@ def match_rows(pads, n_reals, los, his, orders, oks, vn: bool):
                 B, N, int(bool(vn)), torch.cuda.current_stream(dev).cuda_stream)
         cuda_lib.check(rc, "match_grouped")
         launches["match_grouped"] += 1
+    return offsets, matched, m_len, sat
+
+
+def match_rows_finish(launched):
+    """``match_rows_launch``'s outputs cut to their totals (a read of the
+    totals, one sync on a card)."""
+    offsets, matched, m_len, sat = launched
     M, S = offsets[-1].tolist()
     return offsets, matched[:M], m_len[:M], sat[:S]
 
@@ -191,9 +214,10 @@ def _grouped_core(src_pad, n_real, order, ok):
     return pos, torch.stack(cands), torch.stack(lcps)
 
 
-def _grouped_compact_one(src_pad, n_real, lo, hi, order, ok, vn: bool):
-    """One window: ``(key, best_cand, best_len, cands, lcps)``."""
-    pos, cands, lcps = _grouped_core(src_pad, n_real, order, ok)
+def _arbitrate(pos, cands, lcps, n_real, lo, hi, vn: bool):
+    """FIFO strict-max arbitration of one window's candidates: (saturated,
+    matched, best_cand, best_len) per slot; only payload slots (``lo <= p
+    < hi``) are saturated or matched."""
     best_len = torch.zeros_like(pos)
     best_cand = torch.zeros_like(pos)
     sat = torch.zeros(pos.shape, dtype=torch.bool, device=pos.device)
@@ -208,6 +232,14 @@ def _grouped_compact_one(src_pad, n_real, lo, hi, order, ok, vn: bool):
     payload = (pos >= lo) & (pos < hi)
     sat = payload & sat
     matched = payload & ((best_len > 0) | sat)
+    return sat, matched, best_cand, best_len
+
+
+def _grouped_compact_one(src_pad, n_real, lo, hi, order, ok, vn: bool):
+    """One window: ``(key, best_cand, best_len, cands, lcps)``."""
+    pos, cands, lcps = _grouped_core(src_pad, n_real, order, ok)
+    sat, matched, best_cand, best_len = _arbitrate(pos, cands, lcps, n_real,
+                                                   lo, hi, vn)
     key = torch.where(sat, 0, torch.where(matched, 1, 2)).to(torch.uint8)
     return key, best_cand, best_len, cands, lcps
 
@@ -248,3 +280,80 @@ def match_rows_ref(pads, n_reals, los, his, orders, oks, vn: bool):
     cs, ls = take_sat_cols(cands, lcps, idx)
     sat = torch.cat((ss[:, None].int(), cs[sw, :, rank], ls[sw, :, rank]), 1)
     return offsets, matched, m_len, sat
+
+
+# --- the sorted match finder (the argsort path) ---------------------------------
+#
+# Counterpart of the JAX package's ``find_matches_device``, ``_compact_one``
+# and ``find_matches_compact``: the grouping is a stable sort on the device,
+# not ``native.match_group`` on the host. Torch ops on whatever device the
+# window lies on; ``parallel/mesh.sharded_match_find`` runs them per shard.
+
+def _buckets(src_pad, n_real, vn: bool):
+    """Each position's Knuth hash bucket of its 4 bytes (3 with ``vn``),
+    the bytes wrapping at N; positions past ``n_real - 4`` go to the
+    reserved bucket ``1 << HASH_BITS``, which no probed position shares."""
+    s = src_pad.long()
+    vals = (s | (torch.roll(s, -1) << 8) | (torch.roll(s, -2) << 16)
+            | (torch.roll(s, -3) << 24))
+    hv = vals & 0x00FFFFFF if vn else vals
+    # hv * HASH_MUL mod 2**32 in two halves: the full product overflows int64
+    prod = ((hv & 0xFFFF) * C.HASH_MUL
+            + ((((hv >> 16) * C.HASH_MUL) & 0xFFFF) << 16))
+    bucket = (prod & 0xFFFFFFFF) >> (32 - C.HASH_BITS)
+    probed = torch.arange(s.shape[0], device=s.device) <= n_real - 4
+    return torch.where(probed, bucket, 1 << C.HASH_BITS).int()
+
+
+def find_matches_device(src_pad, n_real, vn: bool):
+    """Candidates and first-window LCPs of one zero-padded window
+    ``src_pad`` (N,) uint8 of ``n_real`` bytes, in bucket-sorted order:
+    ``(pos (N,), cands (HASH_WIDTH, N), lcps (HASH_WIDTH, N))``, int32.
+
+    A stable sort by bucket groups the positions; candidate r of sorted slot
+    s is slot s - r where it shares the bucket, lies no more than the
+    largest distance back (``VN_MAX_D_VALUE`` with ``vn``) and before the
+    position. Those tests give the ``ok`` bits of ``_grouped_core``, which
+    then computes what the grouped path does."""
+    bucket = _buckets(src_pad, n_real, vn)
+    b_sorted, order = torch.sort(bucket, stable=True)
+    order = order.int()
+    max_d = C.VN_MAX_D_VALUE if vn else C.MAX_D_VALUE
+    slot = torch.arange(order.shape[0], device=order.device)
+    ok = torch.zeros_like(order)
+    for r in range(1, C.HASH_WIDTH + 1):
+        cand = torch.roll(order, r)
+        okr = ((torch.roll(b_sorted, r) == b_sorted) & (slot >= r)
+               & (order - cand <= max_d) & (cand < order))
+        ok |= okr.int() << (r - 1)
+    return _grouped_core(src_pad, n_real, order, ok)
+
+
+def _compact_one(src_pad, n_real, lo, hi, vn: bool):
+    """One window through ``find_matches_device`` and the arbitration, its
+    slots reordered saturated first, then matched, then the rest (a stable
+    sort by key): ``(counts (2,) [saturated, matched], pos, best_cand,
+    best_len, cands, lcps)``."""
+    pos, cands, lcps = find_matches_device(src_pad, n_real, vn)
+    sat, matched, best_cand, best_len = _arbitrate(pos, cands, lcps, n_real,
+                                                   lo, hi, vn)
+    key = torch.where(sat, 0, torch.where(matched, 1, 2))
+    order = torch.sort(key, stable=True).indices
+    counts = torch.stack((sat.sum(), matched.sum())).int()
+    return (counts, pos[order], best_cand[order], best_len[order],
+            cands[:, order], lcps[:, order])
+
+
+def find_matches_compact(src_pads, n_reals, los, his, vn: bool):
+    """``_compact_one`` over a batch of windows (B, N), one window at a time
+    (each holds an (N, 64) byte-window matrix): ``(counts (B, 2), pos,
+    best_cand, best_len (B, N), cands, lcps (B, HASH_WIDTH, N))``."""
+    B, N = src_pads.shape
+    if B == 0:
+        def z(*shape):
+            return torch.zeros(shape, dtype=torch.int32, device=src_pads.device)
+        return (z(0, 2), z(0, N), z(0, N), z(0, N), z(0, C.HASH_WIDTH, N),
+                z(0, C.HASH_WIDTH, N))
+    outs = [_compact_one(src_pads[b], n_reals[b], los[b], his[b], vn)
+            for b in range(B)]
+    return tuple(torch.stack(col) for col in zip(*outs))

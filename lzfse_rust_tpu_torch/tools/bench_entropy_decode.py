@@ -44,7 +44,7 @@ def slot_inputs(dec, sources):
     from ..models.decoder import _Clock
     w16 = native_runtime().walk_batch(sources)[1]
     _, (batch, *_rest) = dec._front(sources, None, _Clock(None))
-    return w16, batch.sl_n, batch.sm_n, batch.lit, batch.lmd
+    return w16, batch.sl_n, batch.sm_n, batch.lit[0], batch.lmd[0]
 
 
 def device_tables(weights: torch.Tensor, perm_l: torch.Tensor,

@@ -58,6 +58,11 @@ want enc_e2e "${ARGS[@]}"     && run enc_e2e 600 bench_encode_e2e
 want match_find "${ARGS[@]}"  && run match_find 600 bench_match_find
 # 5. shape model
 want util "${ARGS[@]}"        && run util 300 predict_utilization
+# 6. several devices: the mesh decode over 1, 2 and 4 shards; processes
+# joined over NCCL, one a card
+want scaling "${ARGS[@]}"     && run scaling 600 bench_scaling
+want multihost "${ARGS[@]}"   && run multihost 300 demo_multihost --device cuda \
+  --hosts "$(python3 -c 'import torch; print(max(torch.cuda.device_count(), 1))')"
 
 echo "QUEUE DONE at $(date +%H:%M:%S)"
 exit $FAILED

@@ -16,6 +16,11 @@ from lzfse_rust_tpu_torch.ops import cuda_rebuild as CR
 from lzfse_rust_tpu_torch.ops import match_find as MF
 from lzfse_rust_tpu_torch.ops import table_build as TB
 from lzfse_rust_tpu_torch.ops.fse_encode import build_encode_tables
+from lzfse_rust_tpu_torch.parallel.dryrun import dryrun_multichip
+from lzfse_rust_tpu_torch.parallel.mesh import (make_mesh,
+                                                sharded_grouped_match,
+                                                sharded_pallas_entropy_decode,
+                                                sharded_rebuild)
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.tools import microbench_step as PS
 from lzfse_rust_tpu_torch.utils import corpus
@@ -754,3 +759,101 @@ def test_cuda_table_build_equals_native():
                                     .cuda())
     for g, want in zip(got, (v, u3, tot)):
         assert np.array_equal(g.cpu().numpy(), want)
+
+
+# --- several devices (parallel/mesh.py) ----------------------------------------
+
+def _meshes(kind: str):
+    """``three_on_one``: cuda:0 three times (uneven shards after padding);
+    ``all_cards``: every card, skipped with fewer than two."""
+    if kind == "three_on_one":
+        return make_mesh(["cuda:0"] * 3)
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices or more")
+    return make_mesh(None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["three_on_one", "all_cards"])
+def test_cuda_mesh_decoder_equals_single_device(kind):
+    """``TorchDecoder(mesh=)`` gives the unsharded decoder's bytes, each
+    decode kernel launched once a shard, and the same kernel outputs."""
+    mesh = _meshes(kind)
+    mixed = corpus.small_batch(seed=31, n_fse=7, lo=3_000, hi=60_000)
+    sources = [c for _, c in mixed]
+    dec = TorchDecoder("cuda", mesh=mesh)
+    before = dict(K.launches)
+    stats: dict = {}
+    got = dec.decode_many(sources, stats)
+    assert got == TorchDecoder("cuda").decode_many(sources)
+    assert got == [r for r, _ in mixed]
+    assert stats.get("fallbacks", 0) == 0
+    assert all(K.launches[k] == before[k] + mesh.size + 1 for k in before)
+    assert len(stats["detail_device"]["shard_kernels_ms"]) == mesh.size
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["three_on_one", "all_cards"])
+def test_cuda_sharded_kernels_equal_unsharded(kind):
+    """``sharded_pallas_entropy_decode``, ``sharded_rebuild`` and
+    ``sharded_grouped_match`` equal the unsharded kernels bit for bit."""
+    mesh = _meshes(kind)
+    lit, lmd = TorchDecoder("cuda").kernel_args(
+        [c for _, c in corpus.small_batch(seed=32, n_fse=8)])
+    arrays = K.to_jax_decode_args(lit, lmd)
+    pad = -lit["tables"].shape[0] % mesh.size
+    arrays = {k: np.concatenate([v, np.zeros((pad, *v.shape[1:]), v.dtype)])
+              for k, v in arrays.items()}
+    n_lit = int(((lit["num"].long() + 3) // 4).max())
+    n_lmd = int(lmd["num"].max())
+    got = sharded_pallas_entropy_decode(mesh, arrays, n_lit, n_lmd)
+    w_lit = K.decode_literals(**K.from_jax_decode_args(
+        "literals", arrays["u3_tabs"], arrays["lit_words"],
+        arrays["lit_states"], arrays["lit_pos"], arrays["lit_num"],
+        arrays["lit_tot"], device="cuda"))
+    w_lmd = K.decode_lmds(**K.from_jax_decode_args(
+        "lmds", arrays["v_tabs"], arrays["lmd_words"], arrays["lmd_states"],
+        arrays["lmd_pos"], arrays["lmd_num"], device="cuda"))
+    for g, w in zip(got, (w_lit[0], w_lmd[0], w_lmd[1], w_lit[1], w_lit[2],
+                          w_lmd[2], w_lmd[3])):
+        assert torch.equal(g.cuda(), w)
+
+    # two containers and two windows a shard
+    lits, rows, n_raw, n_out = rebuild_case("overlap", seed=33,
+                                            B=2 * mesh.size)
+    got = sharded_rebuild(mesh, lits, rows, n_raw, n_out)
+    want = CR.lz_rebuild(**CR.from_jax_rebuild_args(lits, rows, n_raw, n_out,
+                                                    device="cuda"))
+    assert torch.equal(got[0].cuda().reshape(-1), want[0])
+    assert torch.equal(got[1].cuda(), want[1])
+
+    a = grouped_inputs((window_rows(4096, seed=34) * 2)[:2 * mesh.size],
+                       4096, False, native_runtime().match_group)
+    got = sharded_grouped_match(mesh, **a)
+    want = MF.match_rows(**{k: torch.from_numpy(v).cuda()
+                            for k, v in a.items()}, vn=False)
+    for g, w in zip(got, want):
+        assert torch.equal(g.cuda(), w)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("kind", ["three_on_one", "all_cards"])
+def test_cuda_mesh_encoder_equals_native(kind):
+    """``TorchEncoder(mesh=)`` writes the native encoder's containers, the
+    match kernel launched once a shard a window size."""
+    mesh = _meshes(kind)
+    raws = [r for r, _ in corpus.small_batch(seed=35, n_fse=5, lo=3_000,
+                                             hi=60_000)]
+    nat = native_runtime()
+    enc = TorchEncoder("cuda", mesh=mesh)
+    before = MF.launches["match_grouped"]
+    stats: dict = {}
+    assert enc.encode_many(raws, stats) == [nat.encode_bytes(r) for r in raws]
+    assert MF.launches["match_grouped"] == before + mesh.size * len(
+        stats["detail_match"])
+
+
+@pytest.mark.cuda
+def test_cuda_dryrun_multichip():
+    assert dryrun_multichip(4)["devices"] == [
+        f"cuda:{i % torch.cuda.device_count()}" for i in range(4)]

@@ -42,9 +42,10 @@ def _outcome(fn):
 
 def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
     """Every module of the port and chip_smoke.py imported, then a CPU
-    decode (with each ``use_kernels`` / ``use_native_rebuild`` choice) and
-    encode (with each frontend) of a small seeded batch: no
-    ``lzfse_rust_tpu`` module is loaded afterwards."""
+    decode (with each ``use_kernels`` / ``use_native_rebuild`` choice, and
+    on a mesh of three CPU shards) and encode (with each frontend, and on
+    the mesh) of a small seeded batch: no ``lzfse_rust_tpu`` module is
+    loaded afterwards."""
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "import chip_smoke\n"
@@ -64,6 +65,12 @@ def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
             "assert TorchEncoder('cpu').encode_many(raws) == want\n"
             "dev = TorchEncoder('cpu', frontend='device')\n"
             "assert dev.encode_many(raws) == want\n"
+            "from lzfse_rust_tpu_torch.parallel.mesh import make_mesh\n"
+            "mesh = make_mesh(['cpu'] * 3)\n"
+            "got = TorchDecoder('cpu', mesh=mesh).decode_many(\n"
+            "    [c for _, c in pairs])\n"
+            "assert got == [r for r, _ in pairs]\n"
+            "assert TorchEncoder('cpu', mesh=mesh).encode_many(raws) == want\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'lzfse_rust_tpu'\n"
             "             or m.startswith('lzfse_rust_tpu.'))\n"

@@ -9,6 +9,7 @@ on small seeded batches.
 """
 
 import hashlib
+import json
 import os
 import pathlib
 import pkgutil
@@ -361,3 +362,45 @@ def test_card_queue_lists_every_tool_and_resumes(tmp_path):
     assert r.returncode == 0, r.stdout + r.stderr
     assert [line.split()[1] for line in r.stdout.splitlines()
             if line.startswith("SKIP")] == jobs
+
+
+def test_dryrun_multichip_on_four_cpu_shards():
+    from lzfse_rust_tpu_torch.parallel.dryrun import dryrun_multichip
+    got = dryrun_multichip(4, device="cpu")
+    assert got["devices"] == ["cpu"] * 4 and got["blocks"] == 8
+
+
+def test_demo_multihost_two_processes_over_gloo():
+    """Two processes join a gloo group, decode their shards and all-gather
+    them; process 0 checks every block against the spec layer."""
+    r = subprocess.run([sys.executable, "-m",
+                        "lzfse_rust_tpu_torch.tools.demo_multihost",
+                        "--device", "cpu", "--hosts", "2"], cwd=ROOT,
+                       capture_output=True, text=True, timeout=300,
+                       env={**os.environ, "CUDA_VISIBLE_DEVICES": ""})
+    assert r.returncode == 0, r.stderr[-3000:]
+    rows = [json.loads(x) for x in r.stdout.splitlines() if x.startswith("{")]
+    assert sorted(x["host"] for x in rows) == [0, 1]
+    assert all(x["ok"] and x["backend"] == "gloo" and x["devices"] == 4
+               for x in rows)
+
+
+def test_demo_multihost_refuses_more_processes_than_cards(monkeypatch):
+    """NCCL takes one card a process: with one card, two processes raise
+    before any starts, and nothing switches to gloo."""
+    from lzfse_rust_tpu_torch.tools import demo_multihost
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    monkeypatch.setattr(demo_multihost.subprocess, "Popen", None)
+    with pytest.raises(RuntimeError, match="Duplicate GPU detected"):
+        demo_multihost.run(2, "cuda")
+
+
+@pytest.mark.parametrize("argv", [["--device", "cuda", "--hosts", "2"], []])
+def test_mesh_tools_raise_without_a_card(argv, monkeypatch, capsys):
+    from lzfse_rust_tpu_torch.tools import bench_scaling, demo_multihost
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    monkeypatch.setattr(common, "card_line", lambda: "CARD LINE")
+    for tool in (demo_multihost, bench_scaling):
+        with pytest.raises(common.NoCardError):
+            tool.main(argv if tool is demo_multihost else [])
+    assert capsys.readouterr().out.splitlines() == ["CARD LINE"] * 2
