@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode (host and device rebuild), both encode frontends, the multi-device paths and the probes once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving decode (host and device rebuild), both encode frontends (with the chunked pipeline and the argsort branch), the multi-device paths, the public API and CLI, and the probes once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -65,6 +65,31 @@ Phases, one line each; any failure exits non-zero and prints no result:
    each window size; with two cards or more, ``tools/demo_multihost
    --device cuda --hosts 2`` (two processes over NCCL), else a line saying
    it was not run;
+8c. api: the public API (``api.py``) on the serving batch, each batch
+   entry point by its default route (the card, whose kernels must launch)
+   and with ``device="cpu"`` (the host thread pool): ``decode_many`` must
+   equal the raw inputs (SHA-256) and the slice phase's ``TorchDecoder``
+   outputs, ``encode_many`` the corpus containers and the encode phase's
+   ``TorchEncoder`` outputs; on the largest input the ring engines, the
+   writer and the reader round trip; ``probe`` on every container; both
+   routes' walls beside the batch engines' from this run;
+8d. cli: ``python3 -m lzfse_rust_tpu_torch.cli -encode`` and ``-decode``
+   as two processes, the first's output streamed into the second, on the
+   largest raw input: SHA-exact, the stream between them equal to
+   ``LzfseRingEncoder``'s;
+8e. encode_chunks: ``TorchEncoder("cuda").encode_many`` with
+   ``LZT_ENC_CHUNKS`` at 1, 2 and 4, in turns, three timed runs each after
+   a warm-up: every container equal to its corpus container,
+   ``pipeline_chunks`` the count and each encode kernel launched once a
+   chunk (counts set to 0 before each run); walls and stage splits
+   beside the encode phase's;
+8f. encode_argsort: ``TorchEncoder("cuda", frontend="device")`` with
+   ``LZT_DEV_GROUPED=0`` (``find_matches_compact`` as torch ops on the
+   card) on a cut of the batch, the smallest source with a window of
+   each window size (the host merge takes about a minute on the whole
+   batch): every container equal to its corpus container, each encode
+   kernel launched once; then the grouped path and the argsort branch in
+   turns on the same cut, the walls and match stages of both;
 9. the kernels' JSON line (all nine, each with its time, its plain
    version's time and its bound: the larger of the bytes it must move over
    the card's memory rate and its operations over the card's peak rate,
@@ -77,8 +102,10 @@ just after; the kernel comparisons' launches do not count.
 
 from __future__ import annotations
 
+import contextlib
 import hashlib
 import json
+import os
 import pathlib
 import subprocess
 import sys
@@ -532,7 +559,7 @@ def probes(seed: int) -> list[dict]:
     return rows
 
 
-def slice_run(dec, pairs) -> tuple[dict, tuple]:
+def slice_run(dec, pairs) -> tuple[dict, tuple, list]:
     import torch
     from lzfse_rust_tpu_torch.ops import cuda_decode as K
     from lzfse_rust_tpu_torch.utils import corpus as CP
@@ -567,7 +594,8 @@ def slice_run(dec, pairs) -> tuple[dict, tuple]:
     got = dec.decode_many([c for _, c in small])
     phase("small", got == [r for r, _ in small],
           f"{len(small)} small mixed containers decode to their raw inputs")
-    return launches, (split, detail, wall)
+    digests = [hashlib.sha256(out).digest() for out in outs]
+    return launches, (split, detail, wall), digests
 
 
 def rebuild_run(pairs, default) -> dict:
@@ -626,10 +654,46 @@ def rebuild_run(pairs, default) -> dict:
           f"({sum(len(r) for r, _ in small)} bytes) decode to their raw "
           f"inputs in {wall * 1e3:.1f} ms; stage split ms "
           f"{ {k: round(v * 1e3, 1) for k, v in stats.items() if isinstance(v, float)} }")
+    # B1 (the scans) computes what both decode kernels compute: its bound
+    # is theirs on the same streams
+    lit, lmd = TorchDecoder("cuda").kernel_args([c for _, c in small])
+    work = [codec_work(name, args, fn(**args)) for name, args, fn in (
+        ("decode_literals", lit, KD.decode_literals),
+        ("decode_lmds", lmd, KD.decode_lmds))]
+    n_bytes, n_ops = (sum(w[0] for w in work), sum(w[1] for w in work))
+    print(f"[bounds] B1 decode_literals_batch + decode_lmds_batch (torch "
+          f"ops) on the small batch's {lit['num'].numel()} blocks: the scan "
+          f"path's prep stage {stats['prep'] * 1e3:.1f} ms (host clock, "
+          f"tables included), bound {bound(n_bytes, n_ops)[0]:.6f} ms "
+          f"({n_bytes} bytes, {n_ops} ops: "
+          f"{bound(n_bytes, n_ops)[1]})", flush=True)
     return {"lz_rebuild": launches["lz_rebuild"]}
 
 
-def encode_run(enc, pairs) -> tuple[dict, float]:
+def tables_bound(pairs) -> None:
+    """B3: the device decode-table build (``build_decode_tables_v3``, torch
+    ops) on the serving batch's FSE blocks, timed with CUDA events, beside
+    its bound: the weights read once, the tables written once, at least
+    one operation per weight and per table word."""
+    import torch
+    from lzfse_rust_tpu_torch.ops import table_build as TB
+    from lzfse_rust_tpu_torch.runtime.build import native_runtime
+    from lzfse_rust_tpu_torch.utils.timing import cuda_ms
+    w16 = native_runtime().walk_batch([c for _, c in pairs])[1]
+    weights = torch.from_numpy(w16.astype("int32")).cuda()
+    outs = TB.build_decode_tables_v3(weights)
+    ms = cuda_ms(lambda: TB.build_decode_tables_v3(weights), reps=10,
+                 warmup=2)
+    n_bytes = _nbytes(weights, *outs)
+    n_ops = weights.numel() + sum(o.numel() for o in outs)
+    b_ms, by = bound(n_bytes, n_ops)
+    print(f"[bounds] B3 build_decode_tables_v3 (torch ops) on the batch's "
+          f"{weights.shape[0]} FSE blocks: {ms:.4f} ms (CUDA events, mean "
+          f"of 10), bound {b_ms:.6f} ms ({n_bytes} bytes, {n_ops} ops: "
+          f"{by})", flush=True)
+
+
+def encode_run(enc, pairs) -> tuple[dict, float, tuple]:
     import torch
     from lzfse_rust_tpu_torch.ops import cuda_encode as K
     from lzfse_rust_tpu_torch.utils import corpus as CP
@@ -665,7 +729,7 @@ def encode_run(enc, pairs) -> tuple[dict, float]:
     print(f"[encode] full encode {raw_bytes} bytes in {wall * 1e3:.3f} ms = "
           f"{raw_bytes / wall / 1e9:.4f} GB/s", flush=True)
     encode_bytes_check("encode_bytes", enc, pairs)
-    return launches, raw_bytes / wall / 1e9
+    return launches, raw_bytes / wall / 1e9, (outs, split, wall)
 
 
 def encode_bytes_check(name: str, enc, pairs) -> None:
@@ -880,6 +944,312 @@ def mesh_run(pairs, default) -> None:
           f"demo_multihost --device cuda --hosts 2 (NCCL): {rows or r.stderr[-2000:]}")
 
 
+@contextlib.contextmanager
+def env_var(name: str, value: str):
+    """``os.environ[name]`` set to ``value`` inside the block, restored (or
+    removed again) after it."""
+    old = os.environ.get(name)
+    os.environ[name] = value
+    try:
+        yield
+    finally:
+        if old is None:
+            os.environ.pop(name, None)
+        else:
+            os.environ[name] = old
+
+
+def api_run(pairs, digests, dec_wall: float, one_pass) -> None:
+    """The public API on the serving batch, beside the card's batched
+    engines from this run. Each batch entry point by both routes, the
+    default (the card: one ``TorchDecoder`` / ``TorchEncoder`` call, whose
+    kernels must launch) and ``device="cpu"`` (the host thread pool), one
+    warm-up and one timed call each: ``decode_many`` == the raw inputs and
+    the slice phase's ``TorchDecoder`` outputs; ``encode_many`` == the
+    corpus containers and the encode phase's ``TorchEncoder`` outputs. On
+    the largest input the ring engines, the writer and the reader round
+    trip; ``probe`` on every container."""
+    import io
+    from lzfse_rust_tpu_torch import api
+    from lzfse_rust_tpu_torch.ops import cuda_decode as KD
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    sources = [c for _, c in pairs]
+    raw_bytes = sum(len(r) for r, _ in pairs)
+    e_pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
+    raws = [r for r, _ in e_pairs]
+    e_bytes = sum(map(len, raws))
+    card_outs, _, e_card_wall = one_pass
+    walls = {}
+    for device, kern in (("cuda", KD), ("cpu", None)):
+        api.decode_many(sources, device=device)   # warm-up
+        reset_launches()
+        t = time.perf_counter()
+        outs = api.decode_many(sources, device=device)
+        walls["decode", device] = time.perf_counter() - t
+        launched = dict(kern.launches) if kern else {}
+        got = [hashlib.sha256(o).digest() for o in outs]
+        bad_raw = sum(g != hashlib.sha256(r).digest()
+                      for g, (r, _) in zip(got, pairs))
+        bad_card = sum(g != w for g, w in zip(got, digests))
+        phase("api", bad_raw == 0 and bad_card == 0
+              and all(n > 0 for n in launched.values()),
+              f"decode_many(device={device!r}): {len(outs)} containers, SHA "
+              f"mismatches against the raw inputs {bad_raw}, against "
+              f"TorchDecoder('cuda') {bad_card}; launches {launched}")
+    for device, kern in (("cuda", KE), ("cpu", None)):
+        api.encode_many(raws, device=device)   # warm-up
+        reset_launches()
+        t = time.perf_counter()
+        blobs = api.encode_many(raws, device=device)
+        walls["encode", device] = time.perf_counter() - t
+        launched = dict(kern.launches) if kern else {}
+        bad_corpus = sum(b != c for b, (_, c) in zip(blobs, e_pairs))
+        bad_card = sum(b != c for b, c in zip(blobs, card_outs))
+        phase("api", bad_corpus == 0 and bad_card == 0
+              and all(n > 0 for n in launched.values()),
+              f"encode_many(device={device!r}): {len(blobs)} sources, "
+              f"container mismatches against the corpus {bad_corpus}, "
+              f"against TorchEncoder('cuda') {bad_card}; launches "
+              f"{launched}")
+    big, big_c = max(e_pairs, key=lambda p: len(p[0]))
+    sink = io.BytesIO()
+    n_raw, n_pay = api.LzfseRingEncoder().encode(io.BytesIO(big), sink)
+    ring = sink.getvalue()
+    back = io.BytesIO()
+    n_pay2, n_raw2 = api.LzfseRingDecoder().decode(io.BytesIO(ring), back)
+    w = api.LzfseRingEncoder().writer_bytes()
+    for i in range(0, len(big), 100_003):
+        w.write(big[i:i + 100_003])
+    written = w.into_bytes()
+    r = api.LzfseRingDecoder().reader_bytes(big_c)
+    read = b"".join(iter(lambda: r.read(65_521), b""))
+    probes = [api.probe(c) for c in sources]
+    ok_probe = all(p == (len(c), len(raw))
+                   for p, (raw, c) in zip(probes, pairs))
+    phase("api", back.getvalue() == big and (n_raw, n_pay) == (
+              len(big), len(ring)) and (n_pay2, n_raw2) == (len(ring),
+                                                              len(big))
+          and written == ring and read == big and ok_probe,
+          f"largest input {len(big)} bytes: ring encode {n_pay} bytes and "
+          f"back, writer == ring stream, reader == raw; probe == (payload, "
+          f"raw) sizes on all {len(sources)} containers")
+    def rate(n_bytes, wall):
+        return f"{wall * 1e3:.3f} ms = {n_bytes / wall / 1e9:.4f} GB/s"
+
+    print(f"[api] decode_many {raw_bytes} bytes: card "
+          f"{rate(raw_bytes, walls['decode', 'cuda'])}, host "
+          f"{rate(raw_bytes, walls['decode', 'cpu'])} (TorchDecoder('cuda'), "
+          f"same run: {rate(raw_bytes, dec_wall)}); encode_many {e_bytes} "
+          f"bytes: card {rate(e_bytes, walls['encode', 'cuda'])}, host "
+          f"{rate(e_bytes, walls['encode', 'cpu'])} (TorchEncoder('cuda'), "
+          f"same run: {rate(e_bytes, e_card_wall)}); {os.cpu_count()} host "
+          f"cores", flush=True)
+
+
+def cli_run(pairs) -> None:
+    """``python3 -m lzfse_rust_tpu_torch.cli -encode`` and ``-decode`` as
+    two processes, the first's output streamed into the second, on the
+    largest raw input: SHA-exact, and the stream between them equals
+    ``LzfseRingEncoder``'s."""
+    import io
+    import threading
+    from lzfse_rust_tpu_torch import api
+    big = max((r for r, _ in pairs), key=len)
+    cmd = [sys.executable, "-m", "lzfse_rust_tpu_torch.cli"]
+    t = time.perf_counter()
+    enc_p = subprocess.Popen(cmd + ["-encode"], cwd=ROOT,
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE)
+    dec_p = subprocess.Popen(cmd + ["-decode"], cwd=ROOT,
+                             stdin=subprocess.PIPE, stdout=subprocess.PIPE,
+                             stderr=subprocess.PIPE)
+    stream = bytearray()
+
+    def feed():
+        enc_p.stdin.write(big)
+        enc_p.stdin.close()
+
+    def relay():
+        for chunk in iter(lambda: enc_p.stdout.read(1 << 16), b""):
+            stream.extend(chunk)
+            dec_p.stdin.write(chunk)
+        dec_p.stdin.close()
+
+    threads = [threading.Thread(target=f, daemon=True) for f in (feed, relay)]
+    for th in threads:
+        th.start()
+    out = dec_p.stdout.read()
+    for th in threads:
+        th.join(timeout=300)
+    rcs = []
+    for proc in (enc_p, dec_p):
+        try:
+            rcs.append(proc.wait(timeout=300))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            rcs.append(proc.wait())
+    errs = [proc.stderr.read().decode(errors="replace")[-500:]
+            for proc in (enc_p, dec_p)]
+    wall = time.perf_counter() - t
+    sink = io.BytesIO()
+    api.LzfseRingEncoder().encode(io.BytesIO(big), sink)
+    phase("cli", rcs == [0, 0] and hashlib.sha256(out).digest()
+          == hashlib.sha256(big).digest() and bytes(stream)
+          == sink.getvalue(),
+          f"-encode | -decode as two processes on {len(big)} bytes: exit "
+          f"codes {rcs}, SHA-exact {out == big}, stream of {len(stream)} "
+          f"bytes == LzfseRingEncoder's {bytes(stream) == sink.getvalue()}, "
+          f"{wall:.2f} s with both processes' start {errs if any(rcs) else ''}")
+
+
+CHUNK_COUNTS = (1, 2, 4)
+CHUNK_ROUNDS = 3
+
+
+def encode_chunks_run(enc, pairs, one_pass) -> None:
+    """``TorchEncoder("cuda").encode_many`` on the serving batch's raw
+    inputs with ``LZT_ENC_CHUNKS`` at 1, 2 and 4, in turns (1, 2, 4, 1, 2,
+    4, ...), ``CHUNK_ROUNDS`` timed runs each after one warm-up: every
+    container == the corpus's, ``pipeline_chunks`` == the count, each
+    encode kernel launched once a chunk; walls and stage splits beside
+    the encode phase's one-pass run."""
+    from lzfse_rust_tpu_torch.ops import cuda_encode as K
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
+    raws = [r for r, _ in pairs]
+    raw_bytes = sum(map(len, raws))
+    runs: dict = {n: [] for n in CHUNK_COUNTS}
+    for n in CHUNK_COUNTS:
+        with env_var("LZT_ENC_CHUNKS", str(n)):
+            enc.encode_many(raws)
+    for _ in range(CHUNK_ROUNDS):
+        for n in CHUNK_COUNTS:
+            with env_var("LZT_ENC_CHUNKS", str(n)):
+                stats: dict = {}
+                reset_launches()
+                t = time.perf_counter()
+                outs = enc.encode_many(raws, stats)
+                wall = time.perf_counter() - t
+            launches = dict(K.launches)
+            bad = sum(o != c for o, (_, c) in zip(outs, pairs))
+            phase("encode_chunks", bad == 0 and stats["pipeline_chunks"] == n
+                  and all(v == n for v in launches.values()),
+                  f"LZT_ENC_CHUNKS={n}: {len(outs)} sources, container "
+                  f"mismatches {bad}, pipeline_chunks "
+                  f"{stats['pipeline_chunks']}, launches {launches}")
+            runs[n].append((wall, stats))
+    _, o_split, o_wall = one_pass
+    print(f"[encode_chunks] encode phase's one-pass run: {o_wall * 1e3:.3f} "
+          f"ms, stage split ms {o_split}", flush=True)
+    for n in CHUNK_COUNTS:
+        walls = sorted(w for w, _ in runs[n])
+        wall, stats = min(runs[n], key=lambda x: x[0])
+        split = {k: round(v * 1e3, 3) for k, v in stats.items()
+                 if isinstance(v, float)}
+        dev = {k: round(v, 3) for k, v in stats["detail_device"].items()}
+        print(f"[encode_chunks] LZT_ENC_CHUNKS={n}: walls ms "
+              f"{[round(w * 1e3, 3) for w in walls]}, smallest "
+              f"{walls[0] * 1e3:.3f} ms = {raw_bytes / walls[0] / 1e9:.4f} "
+              f"GB/s; its stage split ms {split}; device events ms (summed "
+              f"over chunks) {dev}", flush=True)
+
+
+def encode_argsort_run(pairs) -> None:
+    """``TorchEncoder("cuda", frontend="device")`` with ``LZT_DEV_GROUPED=0``
+    (the argsort branch: ``find_matches_compact`` as torch ops on the card)
+    on a cut of the serving batch: for each window size the device
+    frontend makes of the batch, the smallest source with a window of that
+    size. Every container == the corpus's; both encode kernels launched."""
+    import torch
+    from lzfse_rust_tpu_torch import TorchEncoder
+    from lzfse_rust_tpu_torch.models import encoder as ME
+    from lzfse_rust_tpu_torch.ops import cuda_encode as K
+    from lzfse_rust_tpu_torch.ops import match_find as MF
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
+    raws = [r for r, _ in pairs]
+    wins = TorchEncoder.windows(raws)
+    pick = {}
+    for i, _, _, _, N in wins:
+        if N not in pick or len(raws[i]) < len(raws[pick[N]]):
+            pick[N] = i
+    cut = sorted(set(pick.values()))
+    sub = [pairs[i] for i in cut]
+    enc = TorchEncoder("cuda", frontend="device")
+    with env_var("LZT_DEV_GROUPED", "0"):
+        torch.cuda.reset_peak_memory_stats()
+        stats: dict = {}
+        reset_launches()
+        t = time.perf_counter()
+        outs = enc.encode_many([r for r, _ in sub], stats)
+        wall = time.perf_counter() - t
+    launches = dict(K.launches)
+    bad = sum(o != c for o, (_, c) in zip(outs, sub))
+    sizes = sorted(d["N"] for d in stats["detail_match"])
+    phase("encode_argsort", bad == 0 and sizes == sorted(pick)
+          and all(v == 1 for v in launches.values()),
+          f"LZT_DEV_GROUPED=0 on a cut of the batch: {len(sub)} of "
+          f"{len(pairs)} sources ({sum(len(r) for r, _ in sub)} of "
+          f"{sum(map(len, raws))} raw bytes), the smallest with a window of "
+          f"each size {sorted(pick)} (the host merge takes about a minute "
+          f"on the whole batch); container mismatches {bad}, launches "
+          f"{launches}")
+    peak_mib = torch.cuda.max_memory_allocated() / 2**20
+    # both match-finder paths on the same cut, in turns after the run
+    # above: argsort, grouped, argsort, grouped
+    cut_runs: dict = {"0": [(wall, stats["matchfind"])], "1": []}
+    for flag in ("1", "0", "1"):
+        with env_var("LZT_DEV_GROUPED", flag):
+            st: dict = {}
+            t = time.perf_counter()
+            got = enc.encode_many([r for r, _ in sub], st)
+            cut_runs[flag].append((time.perf_counter() - t, st["matchfind"]))
+        phase("encode_argsort", all(o == c for o, (_, c) in zip(got, sub)),
+              f"LZT_DEV_GROUPED={flag} on the same cut: every container == "
+              f"the corpus's")
+    for flag, name in (("0", "argsort"), ("1", "grouped")):
+        print(f"[encode_argsort] LZT_DEV_GROUPED={flag} ({name}) on the cut: "
+              f"walls ms {[round(w * 1e3, 3) for w, _ in cut_runs[flag]]}, "
+              f"matchfind stage ms "
+              f"{[round(m * 1e3, 3) for _, m in cut_runs[flag]]}", flush=True)
+    det = stats["detail_match"]
+    # A3's bound: its inputs read once, its full outputs written once, and
+    # the grouped finder's least work (per slot the arbitration, per set
+    # candidate the 8-byte words compared up to the first difference)
+    n_bytes = n_ops = 0
+    for N, idxs in sorted({N: [w for w in wins if w[0] in cut and w[4] == N]
+                           for N in pick}.items()):
+        pads = torch.zeros((len(idxs), N), dtype=torch.uint8)
+        for r, (i, base, ctx, n, _) in enumerate(idxs):
+            pads[r, :n] = torch.frombuffer(bytearray(raws[i][base:base + n]),
+                                           dtype=torch.uint8)
+        meta = torch.tensor([[n, ctx, ctx + ME.WINDOW_STRIDE]
+                             for _, _, ctx, n, _ in idxs],
+                            dtype=torch.int32).cuda()
+        args = (pads.cuda(), meta[:, 0].contiguous(),
+                meta[:, 1].contiguous(), meta[:, 2].contiguous())
+        outs = MF.find_matches_compact(*args, False)
+        cands, lcps = outs[4], outs[5]
+        words = ((lcps.clamp(0, 63) >> 3) + 1)[cands >= 0]
+        n_bytes += _nbytes(*args, *outs)
+        n_ops += (MATCH_OPS_PER_SLOT * args[0].numel()
+                  + MATCH_OPS_PER_WORD * int(words.sum()))
+        del outs, cands, lcps, words
+    b_ms, by = bound(n_bytes, n_ops)
+    print(f"[bounds] A3 find_matches_compact (torch ops) on the cut's "
+          f"{sum(d['windows'] for d in det)} windows: "
+          f"{sum(d['kernel_ms'] for d in det):.4f} ms (CUDA events in "
+          f"encode_many, the counts' read included), bound {b_ms:.6f} ms "
+          f"({n_bytes} bytes, {n_ops} ops: {by})", flush=True)
+    print(f"[encode_argsort] {wall * 1e3:.3f} ms; stage split ms "
+          f"{ {k: round(v * 1e3, 3) for k, v in stats.items() if isinstance(v, float)} }"
+          f"; per window size (N, windows, upload / match finding / download "
+          f"ms, bytes down) "
+          f"{[(d['N'], d['windows'], round(d['upload_ms'], 3), round(d['kernel_ms'], 3), round(d['download_ms'], 3), d['download_bytes']) for d in det]}"
+          f"; peak device memory {peak_mib:.1f} MiB", flush=True)
+
+
 def main() -> int:
     if not (ROOT / "lzfse_rust_tpu_torch").is_dir():
         print("chip_smoke: the package lzfse_rust_tpu_torch is not beside "
@@ -898,12 +1268,17 @@ def main() -> int:
         enc_dev = TorchEncoder("cuda", frontend="device")
         rows = kernels(dec, enc, pairs) + [match_kernel(enc_dev, pairs),
                                            rebuild_kernel(dec, pairs)]
-        launches, default = slice_run(dec, pairs)
+        launches, default, digests = slice_run(dec, pairs)
         launches.update(rebuild_run(pairs, default))
-        enc_launches, native_gbps = encode_run(enc, pairs)
+        tables_bound(pairs)
+        enc_launches, native_gbps, one_pass = encode_run(enc, pairs)
         launches.update(enc_launches)
         launches.update(encode_device_run(enc_dev, pairs, native_gbps))
         mesh_run(pairs, default)
+        api_run(pairs, digests, default[2], one_pass)
+        cli_run(pairs)
+        encode_chunks_run(enc, pairs, one_pass)
+        encode_argsort_run(pairs)
         for r in rows:
             r["launches"] = launches[r["name"]]
         rows += probe_rows

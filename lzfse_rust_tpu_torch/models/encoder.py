@@ -20,13 +20,24 @@ E-table build (``ops/fse_encode.py``) and the two encode kernels of
    one staging pool, pinned on a card. A pool too small for the batch is
    the one failure that is retried: the pool doubles and the frontends run
    again;
-3. emit_prep: each kernel's slots are ordered longest first, and the live
-   rows of the pool go up in ``non_blocking`` copies;
-4. emit_kernels: the E tables, the literal and L/M/D kernels, and one
-   pinned download of the push groups and final states;
+3. emit_prep: each kernel's slots are ordered longest first, and the
+   staged rows go up in ``non_blocking`` copies;
+4. emit_dispatch: the E tables and the literal and L/M/D kernels are
+   enqueued, with the pinned downloads of the push groups and final
+   states; emit_kernels: the wait for them;
 5. pack: ``native.pack_stage`` packs every slot's groups into its block
    body; a block's period-split alternative wins when it is strictly
    smaller (ties keep the block as it is), as ``emit_best`` decides.
+
+``LZT_ENC_CHUNKS`` (read per call, default 1, clamped to [1, number of
+sources above ``VN_CUTOFF``]) pipelines steps 2-4 as the JAX encoder does:
+the biggest sources are dealt round-robin into that many chunks; each
+chunk's frontends stage into the next contiguous slots of the one pool,
+and its steps 3-4 are enqueued on the device, into the same rows of one
+host buffer, while the host runs the next chunk's frontends; after the
+last chunk one wait and step 5 over every slot. One chunk is the same
+path with nothing to overlap. Each encode kernel launches once a chunk;
+the containers do not change.
 
 ``encode_bytes`` ports the native-frontend branch of
 ``TpuEncoder.encode_bytes``: ``native.frontend_blocks``, the period-split
@@ -56,8 +67,16 @@ and emitted as above. ``encode_many`` runs, per stage:
 5. merge: per source, the windows' rows are joined, extended backwards
    (``spec.match_find._lcp_backward``) and sorted by position;
 6. select: ``native.select_blocks`` per source;
-7. emit_prep, emit_kernels, pack: every block of every source staged and
-   emitted in one pass of the two encode kernels, as ``encode_bytes`` does.
+7. emit_prep, emit_dispatch, emit_kernels, pack: every block of every
+   source staged and emitted in one pass of the two encode kernels, as
+   ``encode_bytes`` does.
+
+``LZT_DEV_GROUPED`` set to anything but ``"1"`` (the default) takes the
+JAX encoder's argsort branch for step 3 instead (``_windows_compact``:
+``ops/match_find.find_matches_compact``, torch ops on the device, one
+window size at a time, and no mesh); the other steps are the same. It is
+kept for parity with the JAX encoder and as a reference for the grouped
+kernel, not as a faster choice.
 
 Every output is byte-identical to ``native.encode_bytes``. Unlike the JAX
 encoder, nothing falls back to a host encoder: an error in a kernel, a
@@ -83,7 +102,7 @@ from ..parallel.mesh import sharded_grouped_match
 from ..runtime.build import native_runtime
 from ..spec import fse as F
 from ..spec.match_find import MatchStream, _lcp_backward, _lcp_forward
-from .decoder import _Clock, _round_up, download
+from .decoder import _Clock, _round_up, host_buffer
 
 # staged row width: LMDS_PER_BLOCK rounded up to 128, the width
 # native.frontend_stage and native.pack_stage are used with
@@ -119,6 +138,9 @@ _POOL = (("weights", (C.N_WEIGHTS,), torch.int64),
          ("order_m", (), torch.int32))
 _UPLOAD = ("weights", "litw", "lit_num", "lmv", "dv", "lmd_num", "order_l",
            "order_m")
+# widths of the emission's outputs, as the kernels return them: glo, gmeta,
+# literal states, mlo, mmeta, L/M/D states
+_DOWN_WIDTHS = (N_COLS, N_COLS, 4, N_COLS, N_COLS, 3)
 
 
 def _parse_blocks(blob: bytes):
@@ -244,6 +266,15 @@ def _merge(full: np.ndarray, parts) -> MatchStream:
                        fwd_len=fwd_k[order], back_max=back_k[order])
 
 
+def _slot_bound(sources, big) -> int:
+    """The staging pool's first size for the sources ``big``: every closed
+    block consumes >= 40000 source bytes (10000 rows of >= 4-byte matches,
+    or the 40000-literal cap), +1 final block; the slack covers
+    period-split alternatives. A pool too small doubles and the frontends
+    run again."""
+    return sum(len(sources[i]) // 40000 + 2 for i in big) + 32
+
+
 class _Pool:
     """Host staging arrays for ``slots`` blocks: torch tensors (pinned for a
     card) and the numpy views the native calls fill."""
@@ -334,53 +365,89 @@ class TorchEncoder:
             self._pool = _Pool(_round_up(slots, 256), self.device.type == "cuda")
         return self._pool
 
-    def _frontends(self, sources, big):
-        """Run ``native.frontend_stage`` on every source in ``big``. Returns
-        (pool, slots used, per-source base-slot lists, per-source block
-        counts)."""
-        # every closed block consumes >= 40000 source bytes (10000 rows of
-        # >= 4-byte matches, or the 40000-literal cap), +1 final block;
-        # the slack covers period-split alternatives
-        bound = sum(len(sources[i]) // 40000 + 2 for i in big) + 32
+    def _frontends(self, sources, big, clock: _Clock | None = None,
+                   n_chunks: int = 1, emit: bool = False):
+        """Run ``native.frontend_stage`` on every source in ``big``, in
+        ``n_chunks`` chunks: the biggest sources dealt round-robin, as
+        ``TpuEncoder._encode_many_staged`` deals them under
+        ``LZT_ENC_CHUNKS``; each chunk stages into the next contiguous
+        slots of one pool. With ``emit``, each chunk's emission is enqueued
+        (``_emit_chunk``) before the next chunk's frontends run. A pool too
+        small for the batch is the one failure that is retried: the chunks
+        in flight are waited for, the pool doubles and every frontend runs
+        again. Returns (pool, slots used, per-source base-slot lists,
+        per-source block counts, the emitted chunks)."""
+        clock = clock or _Clock(None)
+        groups: list = [[] for _ in range(n_chunks)]
+        for r, i in enumerate(sorted(big, key=lambda i: -len(sources[i]))):
+            groups[r % n_chunks].append(i)
+        bound = _slot_bound(sources, big)
         while True:
             pool = self._staging(bound)
             bufs = pool.native_bufs()
             counter = np.zeros(1, np.int64)
             out_lists = {i: np.zeros(len(sources[i]) // 40000 + 2, np.int32)
                          for i in big}
+            nb_of: dict = {}
+            chunks: list = []
             try:
-                counts = _map(lambda i: self._native.frontend_stage(
-                    sources[i], bufs, counter, out_lists[i]), big)
+                for grp in groups:
+                    s0 = int(counter[0])
+                    nb_of.update(zip(grp, _map(
+                        lambda i: self._native.frontend_stage(
+                            sources[i], bufs, counter, out_lists[i]), grp)))
+                    s1 = int(counter[0])
+                    clock.mark("frontend")
+                    # a period-split alternative is staged by its block's
+                    # own frontend call, so it lies in the block's chunk
+                    alt = pool.a["meta"][s0:s1, 2]
+                    alt = alt[(alt >= 0) & ((alt < s0) | (alt >= s1))]
+                    if len(alt):
+                        raise RuntimeError(
+                            f"frontend_stage staged a period-split "
+                            f"alternative outside its chunk [{s0}, {s1}): "
+                            f"{alt[:8]}")
+                    if emit and s1 > s0:
+                        chunks.append(self._emit_chunk(pool, s0, s1, clock))
             except LzfseError:
-                # the pool overflowed; nothing has been launched yet
+                # the pool overflowed: the chunks in flight still read it
+                # and write the download buffer; wait for them, then run
+                # every frontend again in a doubled pool
+                for c in chunks:
+                    if c["events"]:
+                        c["events"][-1].synchronize()
+                self._pool_free = None
                 if bound > MAX_SLOTS:
                     raise
                 bound *= 2
                 continue
             break
-        nb_of = dict(zip(big, counts))
         nb = int(counter[0])
         # an input above VN_CUTOFF always closes at least one block; assembly
-        # below reads each source's base slots
-        if nb < 1 or min(counts) < 1:
+        # reads each source's base slots
+        if nb < 1 or min(nb_of.values()) < 1:
             raise RuntimeError(f"frontend_stage staged {nb} slots, block "
-                               f"counts {counts}: a source closed no block")
-        return pool, nb, out_lists, nb_of
+                               f"counts {[nb_of[i] for i in big]}: a source "
+                               f"closed no block")
+        return pool, nb, out_lists, nb_of, chunks
 
-    def _upload(self, pool: _Pool, nb: int) -> dict:
-        """Order the slots and send the live rows of the pool to the device.
-        Returns the device tensors (views of the pool on CPU)."""
+    def _upload(self, pool: _Pool, s0: int, s1: int) -> dict:
+        """Order the slots [s0, s1) (the orders index those rows, from 0)
+        and send those rows of the pool to the device. Returns the device
+        tensors (views of the pool on CPU); on a card ``"upload"`` holds the
+        copies' (start, end) events, and the pool is busy until the end
+        (``_pool_free``)."""
         a = pool.a
-        a["order_l"][:nb] = K.slot_order(
-            K.steps_of("literals", a["lit_num"][:nb], N_COLS))
-        a["order_m"][:nb] = K.slot_order(
-            K.steps_of("lmds", a["lmd_num"][:nb], N_COLS))
+        a["order_l"][s0:s1] = K.slot_order(
+            K.steps_of("literals", a["lit_num"][s0:s1], N_COLS))
+        a["order_m"][s0:s1] = K.slot_order(
+            K.steps_of("lmds", a["lmd_num"][s0:s1], N_COLS))
         cuda = self.device.type == "cuda"
         if cuda:
             ev = (torch.cuda.Event(enable_timing=True),
                   torch.cuda.Event(enable_timing=True))
             ev[0].record()
-        dev = {k: pool.t[k][:nb].to(self.device, non_blocking=True)
+        dev = {k: pool.t[k][s0:s1].to(self.device, non_blocking=True)
                for k in _UPLOAD}
         if cuda:
             ev[1].record()
@@ -398,36 +465,66 @@ class TorchEncoder:
                    num=dev["lmd_num"], order=dev["order_m"])
         return lit, lmd
 
-    def _emit(self, pool: _Pool, nb: int, stats: dict | None,
-              clock: _Clock):
-        """Upload, E tables, both kernels, download. Returns host arrays
-        (glo, gmeta, literal states, mlo, mmeta, L/M/D states), by slot."""
-        dev = self._upload(pool, nb)
+    def _download_rows(self, slots: int) -> list:
+        """Host tensors ``(slots, width)`` for the six emission outputs
+        (glo, gmeta, literal states, mlo, mmeta, L/M/D states) over the
+        reusable download buffer, pinned for a card."""
+        self._down = host_buffer(self._down, slots * sum(_DOWN_WIDTHS),
+                                 self.device.type == "cuda")
+        rows, o = [], 0
+        for w in _DOWN_WIDTHS:
+            rows.append(self._down[o:o + slots * w].view(slots, w))
+            o += slots * w
+        return rows
+
+    def _emit_chunk(self, pool: _Pool, s0: int, s1: int,
+                    clock: _Clock) -> dict:
+        """Enqueue the emission of the slots [s0, s1): upload of those rows
+        (``emit_prep``), E tables, both kernels and the downloads into the
+        same rows of the download buffer (``emit_dispatch``), all without
+        waiting for the device. Returns the chunk's bytes up and down, the
+        download rows and, on a card, its events (upload start, upload end,
+        kernels end, downloads end)."""
+        host = self._download_rows(pool.slots)
+        dev = self._upload(pool, s0, s1)
         clock.mark("emit_prep")
-        cuda = self.device.type == "cuda"
-        if cuda:
-            ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
-            ev[0].record()
         lit, lmd = self._kwargs(dev)
         outs = (*K.encode_literals(**lit), *K.encode_lmds(**lmd))
+        cuda = self.device.type == "cuda"
+        if cuda:
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+        for h, x in zip(host, outs):
+            h[s0:s1].copy_(x, non_blocking=cuda)
         if cuda:
             ev[1].record()
-        self._down, pieces = download(outs, self._down, cuda)
+        clock.mark("emit_dispatch")
+        return {"up": sum(dev[k].nbytes for k in _UPLOAD),
+                "down": sum(x.nbytes for x in outs), "host": host,
+                "events": (*dev["upload"], *ev) if cuda else ()}
+
+    def _emit_wait(self, chunks: list, nb: int, stats: dict | None,
+                   clock: _Clock) -> list:
+        """Wait for the emitted chunks (``emit_kernels``). Adds their bytes
+        and, on a card, the CUDA-event ms of their uploads, E tables and
+        kernels, and downloads to ``stats``. Returns host arrays (glo,
+        gmeta, literal states, mlo, mmeta, L/M/D states) of the slots
+        [0, nb)."""
+        if chunks[-1]["events"]:
+            chunks[-1]["events"][-1].synchronize()
         if stats is not None:
-            for key, ts in (("upload_bytes", [dev[k] for k in _UPLOAD]),
-                            ("download_bytes", outs)):
-                stats[key] = stats.get(key, 0) + sum(x.nbytes for x in ts)
-        if cuda:
-            ev[2].record()
-            ev[2].synchronize()
-            if stats is not None:
+            for key, part in (("upload_bytes", "up"),
+                              ("download_bytes", "down")):
+                stats[key] = stats.get(key, 0) + sum(c[part] for c in chunks)
+            if self.device.type == "cuda":
                 det = stats.setdefault("detail_device", {})
-                for key, a, b in (("upload_ms", *dev["upload"]),
-                                  ("kernels_ms", ev[0], ev[1]),
-                                  ("download_ms", ev[1], ev[2])):
-                    det[key] = det.get(key, 0.0) + a.elapsed_time(b)
+                for key, a, b in (("upload_ms", 0, 1), ("kernels_ms", 1, 2),
+                                  ("download_ms", 2, 3)):
+                    det[key] = det.get(key, 0.0) + sum(
+                        c["events"][a].elapsed_time(c["events"][b])
+                        for c in chunks)
         clock.mark("emit_kernels")
-        return pieces
+        return [h.numpy()[:nb] for h in chunks[-1]["host"]]
 
     # -- public ----------------------------------------------------------
 
@@ -438,7 +535,9 @@ class TorchEncoder:
         ``native.encode_bytes`` per source.
 
         ``stats``, when given, receives wall-clock seconds per stage
-        (``small``, ``frontend``, ``emit_prep``, ``emit_kernels``, ``pack``;
+        (``small``, ``frontend``, ``emit_prep``, ``emit_dispatch``,
+        ``emit_kernels``, ``pack``; the native frontend's
+        ``pipeline_chunks`` counts the chunks emitted;
         with the device frontend ``win_prep``, ``matchfind``, ``arbitrate``,
         ``merge`` and ``select`` in place of ``frontend``), the emission's
         bytes sent up and brought back (``upload_bytes``,
@@ -461,9 +560,14 @@ class TorchEncoder:
         if self.frontend == "device":
             return self._encode_many_device(sources, big, results, stats,
                                             clock)
-        pool, nb, out_lists, nb_of = self._frontends(sources, big)
-        clock.mark("frontend")
-        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit(pool, nb, stats, clock)
+        n_chunks = min(max(int(os.environ.get("LZT_ENC_CHUNKS", "1")), 1),
+                       len(big))
+        pool, nb, out_lists, nb_of, chunks = self._frontends(
+            sources, big, clock, n_chunks, emit=True)
+        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit_wait(chunks, nb, stats,
+                                                           clock)
+        if stats is not None:
+            stats["pipeline_chunks"] = len(chunks)
 
         cap = self._native.PACK_SLOT_CAP
         if self._arena is None or self._arena.size < nb * cap:
@@ -514,8 +618,8 @@ class TorchEncoder:
         big = [i for i, s in enumerate(sources) if len(s) > C.VN_CUTOFF]
         if not big:
             raise ValueError("no source is above VN_CUTOFF: nothing to emit")
-        pool, nb, _, _ = self._frontends(sources, big)
-        return self._kwargs(self._upload(pool, nb))
+        pool, nb, _, _, _ = self._frontends(sources, big)
+        return self._kwargs(self._upload(pool, 0, nb))
 
     def match_args(self, sources: list[bytes], wins: list) -> list[dict]:
         """``match_rows``'s arguments (all but ``vn``) for the windows
@@ -544,8 +648,7 @@ class TorchEncoder:
         wins = self.windows(sources)
         fulls = {i: np.frombuffer(sources[i], dtype=np.uint8) for i in big}
         clock.mark("win_prep")
-        win_out = self._windows_compact_grouped(fulls, wins, False, stats,
-                                                clock)
+        win_out = self._windows_compact(fulls, wins, False, stats, clock)
         parts: dict = {i: [] for i in big}
         for k, w in enumerate(wins):
             parts[w[0]].append(win_out[k])
@@ -570,7 +673,7 @@ class TorchEncoder:
         """One source's match stream through its device windows."""
         full = np.frombuffer(src, dtype=np.uint8)
         wins = _source_windows(0, len(src))
-        win_out = self._windows_compact_grouped({0: full}, wins, vn)
+        win_out = self._windows_compact({0: full}, wins, vn)
         return _merge(full, [win_out[k] for k in range(len(wins))])
 
     def _select_blocks(self, src: bytes, stream: MatchStream):
@@ -615,6 +718,109 @@ class TorchEncoder:
         a["orders"][B:] = np.arange(N, dtype=np.int32)
         a["oks"][B:] = 0
         return t
+
+    def _windows_compact(self, fulls: dict, wins: list, vn: bool,
+                         stats: dict | None = None,
+                         clock: _Clock | None = None) -> dict:
+        """Match rows of every window, as ``TpuEncoder._windows_compact``
+        reads ``LZT_DEV_GROUPED``: at ``"1"`` (the default) the sort-free
+        grouped path (``_windows_compact_grouped``), at any other value the
+        argsort branch below. Same return contract either way: window
+        index -> (abs_pos, best_cand, best_len).
+
+        The argsort branch runs ``ops/match_find.find_matches_compact``
+        (torch ops on this encoder's device; a mesh is not used, as the
+        JAX branch does not use it) on the windows of one window size N
+        at a time: each window's bytes zero-padded to N, uploaded
+        (``win_prep``); on the device every position's candidates by a
+        stable sort of hash buckets, the LCPs and the arbitration, each
+        window's slots ordered saturated first, then matched; the counts
+        read back, then only the first ``kmax`` matched and ``smax``
+        saturated columns brought back, both widths bucketed to powers of
+        two (``matchfind``); the saturated slots re-extended exactly on
+        the host by ``_arbitrate_window`` (``arbitrate``). With ``stats``,
+        each window size appends to ``stats["detail_match"]`` its N,
+        window count, slots, saturated and matched slots, bytes up and
+        down, stage seconds and, on a card, the CUDA-event ms of the
+        upload, the match finding with the counts' read, and the
+        download."""
+        if os.environ.get("LZT_DEV_GROUPED", "1") == "1":
+            return self._windows_compact_grouped(fulls, wins, vn, stats,
+                                                 clock)
+        clock = clock or _Clock(stats)
+        cuda = self.device.type == "cuda"
+        out: dict = {}
+        for N, idxs in _by_n(wins):
+            B = len(idxs)
+            host = {"pads": self._host("pads", (B, N), torch.uint8),
+                    "n_reals": self._host("n_reals", (B,), torch.int32),
+                    "los": self._host("los", (B,), torch.int32),
+                    "his": self._host("his", (B,), torch.int32)}
+            a = {k: v.numpy() for k, v in host.items()}
+            for r, k in enumerate(idxs):
+                i, base, ctx, n, _ = wins[k]
+                a["pads"][r, :n] = fulls[i][base:base + n]
+                a["pads"][r, n:] = 0
+                a["n_reals"][r], a["los"][r] = n, ctx
+                a["his"][r] = ctx + WINDOW_STRIDE
+            prep_s = clock.mark("win_prep")
+            if cuda:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+                ev[0].record()
+            dev = {k: v.to(self.device, non_blocking=True)
+                   for k, v in host.items()}
+            if cuda:
+                ev[1].record()
+            counts, pos_s, cand_s, len_s, cands_s, lcps_s = \
+                MF.find_matches_compact(dev["pads"], dev["n_reals"],
+                                        dev["los"], dev["his"], vn)
+            counts_h = counts.cpu().numpy()
+            if cuda:
+                ev[2].record()
+            # bucketed slice widths, as the JAX branch cuts its downloads
+            kmax = min(_bucket_pow2(max(int(counts_h[:, 1].max()), 1),
+                                    4096), N)
+            smax = min(_bucket_pow2(max(int(counts_h[:, 0].max()), 1),
+                                    1024), N)
+            rows = [x.cpu() for x in (pos_s[:, :kmax], cand_s[:, :kmax],
+                                      len_s[:, :kmax], cands_s[:, :, :smax],
+                                      lcps_s[:, :, :smax])]
+            if cuda:
+                ev[3].record()
+                ev[3].synchronize()
+            del dev, counts, pos_s, cand_s, len_s, cands_s, lcps_s
+            pos_h, cand_h, len_h = (x.numpy().astype(np.int64)
+                                    for x in rows[:3])
+            cands_h, lcps_h = (x.numpy() for x in rows[3:])
+            find_s = clock.mark("matchfind")
+            for r, k in enumerate(idxs):
+                i, base, ctx, n, _ = wins[k]
+                S, K_ = int(counts_h[r, 0]), int(counts_h[r, 1])
+                if S:
+                    sp, sc, sl = _arbitrate_window(
+                        fulls[i], base, ctx, n, pos_h[r, :S],
+                        cands_h[r, :, :S], lcps_h[r, :, :S], vn)
+                else:
+                    sp = sc = sl = np.zeros(0, np.int64)
+                out[k] = (np.concatenate([sp, pos_h[r, S:K_] + base]),
+                          np.concatenate([sc, cand_h[r, S:K_] + base]),
+                          np.concatenate([sl, len_h[r, S:K_]]))
+            arb_s = clock.mark("arbitrate")
+            if stats is not None:
+                det = {"N": N, "windows": B, "slots": B * N,
+                       "sat": int(counts_h[:, 0].sum()),
+                       "matched": int(counts_h[:, 1].sum()),
+                       "upload_bytes": sum(x.nbytes for x in host.values()),
+                       "download_bytes": counts_h.nbytes + sum(
+                           x.nbytes for x in rows),
+                       "win_prep_s": prep_s, "matchfind_s": find_s,
+                       "arbitrate_s": arb_s}
+                if cuda:
+                    det.update(upload_ms=ev[0].elapsed_time(ev[1]),
+                               kernel_ms=ev[1].elapsed_time(ev[2]),
+                               download_ms=ev[2].elapsed_time(ev[3]))
+                stats.setdefault("detail_match", []).append(det)
+        return out
 
     def _windows_compact_grouped(self, fulls: dict, wins: list, vn: bool,
                                  stats: dict | None = None,
@@ -719,7 +925,7 @@ class TorchEncoder:
         """Block bodies with the period-split decision (emit_best): a block
         with an eligible alternative emits both row forms in the same pass
         and the strictly smaller body wins (ties keep the block as is).
-        ``stats`` and ``clock`` as in ``_emit``."""
+        ``stats`` and ``clock`` as in ``_emit_wait``."""
         flat = list(blocks)
         alt_of: dict[int, int] = {}
         for bi, (lits, rows, n_mb) in enumerate(blocks):
@@ -761,7 +967,8 @@ class TorchEncoder:
             a["lmd_num"][i] = nr
 
         _map(stage, range(nb))
-        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit(pool, nb, stats, clock)
+        glo, gmeta, lfs, mlo, mmeta, mfs = self._emit_wait(
+            [self._emit_chunk(pool, 0, nb, clock)], nb, stats, clock)
 
         def pack(i):
             lits, _, n_mb = blocks[i]

@@ -8,15 +8,25 @@ Port of the JAX package's ``tools/bench_encode_e2e.py``. One warm-up
 native encoder wrote), then ``RUNS`` (default 5) timed runs with ``stats``.
 The wall, each host stage and each CUDA-event device stage is the
 second-smallest over the runs. Unlike the JAX tool, the device is timed
-inside the real call (CUDA events), not modelled from in-jit repetition.
-The JAX tool's ``LZT_ENC_DEVFE`` part (the device match finder) is not
-ported; ``chip_smoke.py`` and ``bench_match_find`` time that frontend.
+inside the real call (CUDA events), not modelled from in-jit repetition;
+under ``LZT_ENC_CHUNKS`` the wall is the pipelined call's own, and
+``pipeline_chunks`` is reported (the JAX tool modelled the overlap
+instead).
+
+With ``LZT_ENC_DEVFE=1``, as in the JAX tool, the device frontend
+(``TorchEncoder("cuda", frontend="device")``) also encodes the batch: one
+warm-up (every output equal to its corpus container) and 2 timed runs,
+the smallest of each under ``device_frontend``: its wall and GB/s, the
+host stages, the match stage's CUDA-event ms summed over the window sizes
+(upload, kernel with compaction, download) and the bytes it brought back.
+On the full serving batch that takes minutes (the host merge).
 The last line is one JSON object.
 """
 
 from __future__ import annotations
 
 import json
+import os
 import sys
 import time
 
@@ -46,8 +56,8 @@ def main(argv=None) -> int:
         stats.append(st)
     wall = second_smallest(walls)
     host = {k: second_smallest([s[k] for s in stats]) * 1e3
-            for k in ("small", "frontend", "emit_prep", "emit_kernels",
-                      "pack")}
+            for k in ("small", "frontend", "emit_prep", "emit_dispatch",
+                      "emit_kernels", "pack") if k in stats[0]}
     dev = {k: second_smallest([s["detail_device"][k] for s in stats])
            for k in stats[0]["detail_device"]}
     out = {"metric": "full_encode_GBps", "value": total / wall / 1e9,
@@ -56,6 +66,7 @@ def main(argv=None) -> int:
            "detail_device_ms": dev,
            "upload_bytes": stats[0]["upload_bytes"],
            "download_bytes": stats[0]["download_bytes"],
+           "pipeline_chunks": stats[0]["pipeline_chunks"],
            "byte_identical": True}
     print(f"{len(raws)} sources, {total} raw bytes: encode_many "
           f"{wall * 1e3:.3f} ms = {total / wall / 1e9:.4f} GB/s "
@@ -65,8 +76,46 @@ def main(argv=None) -> int:
           + "; device events ms " + ", ".join(f"{k} {v:.3f}"
                                                for k, v in dev.items()),
           flush=True)
+    if os.environ.get("LZT_ENC_DEVFE", "0") == "1":
+        out["device_frontend"] = device_frontend(pairs)
     print(json.dumps(out))
     return 0
+
+
+def device_frontend(pairs, runs: int = 2) -> dict:
+    """The device frontend on the same raw inputs: the smallest of ``runs``
+    timed calls for the wall and each stage."""
+    from .. import TorchEncoder
+    raws = [r for r, _ in pairs]
+    total = sum(map(len, raws))
+    enc = TorchEncoder("cuda", frontend="device")
+    bad = sum(o != c for o, (_, c) in zip(enc.encode_many(raws), pairs))
+    if bad:
+        raise RuntimeError(f"device frontend: {bad} outputs differ from the "
+                           f"native encoder's")
+    walls, stats = [], []
+    for _ in range(runs):
+        st: dict = {}
+        t = time.perf_counter()
+        enc.encode_many(raws, st)
+        walls.append(time.perf_counter() - t)
+        stats.append(st)
+    wall = min(walls)
+    match = {k: min([sum(d[k] for d in s["detail_match"]) for s in stats])
+             for k in ("upload_ms", "kernel_ms", "download_ms")}
+    res = {"full_encode_GBps": total / wall / 1e9, "wall_ms": wall * 1e3,
+           "stages_ms": {k: min([s[k] for s in stats]) * 1e3 for k in (
+               "small", "win_prep", "matchfind", "arbitrate", "merge",
+               "select", "emit_prep", "emit_dispatch", "emit_kernels",
+               "pack")},
+           "match_events_ms": match,
+           "match_download_bytes": sum(
+               d["download_bytes"] for d in stats[0]["detail_match"]),
+           "windows": sum(d["windows"] for d in stats[0]["detail_match"])}
+    print(f"device frontend: encode_many {wall * 1e3:.3f} ms = "
+          f"{total / wall / 1e9:.4f} GB/s (smallest of {runs}); match stage "
+          f"events ms {match}", flush=True)
+    return res
 
 
 if __name__ == "__main__":

@@ -45,7 +45,7 @@ def main(argv=None) -> int:
     raws = [r for r, c in serving_pairs() if c != CP.EMPTY]
     big = [i for i, s in enumerate(raws) if len(s) > C.VN_CUTOFF]
     enc = TorchEncoder("cuda")
-    pool, nb, _, _ = enc._frontends(raws, big)
+    pool, nb, _, _, _ = enc._frontends(raws, big)
     dev = enc._upload(pool, nb)
     lit, lmd = enc._kwargs(dev)
     n_cols = lit["words"].shape[1]

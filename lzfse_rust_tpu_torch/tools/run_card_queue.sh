@@ -56,9 +56,12 @@ want per_file "${ARGS[@]}"    && run per_file 900 bench_per_file
 want enc_kernels "${ARGS[@]}" && run enc_kernels 300 bench_encode_kernels
 want enc_e2e "${ARGS[@]}"     && run enc_e2e 600 bench_encode_e2e
 want match_find "${ARGS[@]}"  && run match_find 600 bench_match_find
-# 5. shape model
+want rowgather "${ARGS[@]}"   && run rowgather 300 microbench_rowgather
+# 5. the public API's host engines per kind, beside the card's decode
+want api_corpus "${ARGS[@]}"  && run api_corpus 600 bench_corpus
+# 6. shape model
 want util "${ARGS[@]}"        && run util 300 predict_utilization
-# 6. several devices: the mesh decode over 1, 2 and 4 shards; processes
+# 7. several devices: the mesh decode over 1, 2 and 4 shards; processes
 # joined over NCCL, one a card
 want scaling "${ARGS[@]}"     && run scaling 600 bench_scaling
 want multihost "${ARGS[@]}"   && run multihost 300 demo_multihost --device cuda \

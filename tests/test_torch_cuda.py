@@ -9,6 +9,7 @@ import pytest
 import torch
 
 from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
+from lzfse_rust_tpu_torch.models import encoder as ME
 from lzfse_rust_tpu_torch.ops import cuda_decode as K
 from lzfse_rust_tpu_torch.ops import cuda_encode as KE
 from lzfse_rust_tpu_torch.ops import cuda_probes as P
@@ -25,8 +26,8 @@ from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.tools import microbench_step as PS
 from lzfse_rust_tpu_torch.utils import corpus
 from torch_kit import (REBUILD_CASES, blocks_of, encode_blocks, encode_rows,
-                       grouped_inputs, port_args, rebuild_case, window_rows,
-                       words)
+                       grouped_inputs, overflow_in_second_chunk, port_args,
+                       rebuild_case, window_rows, words)
 
 
 @pytest.fixture(autouse=True)
@@ -857,3 +858,63 @@ def test_cuda_mesh_encoder_equals_native(kind):
 def test_cuda_dryrun_multichip():
     assert dryrun_multichip(4)["devices"] == [
         f"cuda:{i % torch.cuda.device_count()}" for i in range(4)]
+
+
+def _chunk_batch():
+    raws = [r for r, _ in corpus.small_batch(seed=24, n_fse=6, lo=40_000,
+                                             hi=120_000)]
+    pat = np.random.default_rng(24).integers(0, 256, 13, np.uint8).tobytes()
+    return raws + [(pat * 4000)[:45_000]]   # period-split alternatives
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("n_chunks", [1, 2, 3])
+def test_cuda_chunked_encode_launches_once_a_chunk(n_chunks, monkeypatch):
+    """``LZT_ENC_CHUNKS``: the native encoder's containers, each encode
+    kernel launched once a chunk, ``pipeline_chunks`` the count."""
+    raws = _chunk_batch()
+    nat = native_runtime()
+    monkeypatch.setenv("LZT_ENC_CHUNKS", str(n_chunks))
+    enc = TorchEncoder("cuda")
+    enc.encode_many(raws)
+    before = dict(KE.launches)
+    stats: dict = {}
+    assert enc.encode_many(raws, stats) == [nat.encode_bytes(r) for r in raws]
+    assert stats["pipeline_chunks"] == n_chunks
+    assert all(KE.launches[k] == before[k] + n_chunks for k in before)
+    assert set(stats["detail_device"]) == {"upload_ms", "kernels_ms",
+                                           "download_ms"}
+    assert "emit_dispatch" in stats
+
+
+@pytest.mark.cuda
+def test_cuda_chunked_encode_pool_overflow_in_the_second_chunk(monkeypatch):
+    """The second chunk overflows the pool while the first chunk's
+    emission is in flight: the encoder waits for it, doubles the pool and
+    stages every chunk again; the containers do not change."""
+    raws = _chunk_batch()
+    monkeypatch.setenv("LZT_ENC_CHUNKS", "2")
+    got, asked, spans, first = overflow_in_second_chunk("cuda", raws,
+                                                        monkeypatch)
+    assert asked == [first[0][1] + 1, 2 * (first[0][1] + 1)]
+    assert spans == [first[0]] + first
+    assert got == [native_runtime().encode_bytes(r) for r in raws]
+
+
+@pytest.mark.cuda
+def test_cuda_argsort_branch_on_a_two_window_source(monkeypatch):
+    """``LZT_DEV_GROUPED=0``: ``find_matches_compact`` on the card, one
+    window size at a time, then emission through both encode kernels."""
+    rng = np.random.default_rng(30)
+    src = corpus.make_raw("text", ME.WINDOW_STRIDE + 100_000, rng)
+    monkeypatch.setenv("LZT_DEV_GROUPED", "0")
+    enc = TorchEncoder("cuda", frontend="device")
+    before = {**KE.launches, **MF.launches}
+    stats: dict = {}
+    assert enc.encode_many([src], stats) == [native_runtime().encode_bytes(
+        src)]
+    assert [w[2] for w in enc.windows([src])] == [0, ME.WINDOW_CTX]
+    assert all(KE.launches[k] == before[k] + 1 for k in KE.launches)
+    assert MF.launches["match_grouped"] == before["match_grouped"]
+    assert all({"upload_ms", "kernel_ms", "download_ms"} <= set(d)
+               for d in stats["detail_match"])

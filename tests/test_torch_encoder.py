@@ -8,7 +8,10 @@ input) must encode to the same containers as
 mode and as ``native.encode_bytes``; ``encode_bytes`` must equal
 ``TpuEncoder.encode_bytes`` on its device path. More seeded batches are
 held against the native encoder, and every container decodes back through
-``TorchDecoder``.
+``TorchDecoder``. With ``LZT_ENC_CHUNKS`` at 2 and 3 the chunked pipeline
+must give the same containers as the JAX encoder's chunked pipeline, call
+each kernel's plain version once a chunk, and survive a pool overflow in
+its second chunk.
 """
 
 import numpy as np
@@ -24,6 +27,7 @@ from lzfse_rust_tpu_torch.models import encoder as M
 from lzfse_rust_tpu_torch.ops import cuda_encode as K
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.utils import corpus
+from torch_kit import chunk_spans, overflow_in_second_chunk
 
 STAGES = {"small", "frontend", "emit_prep", "emit_kernels", "pack"}
 
@@ -90,7 +94,7 @@ def test_period_split_alternative_is_staged_and_chosen(enc, nat):
     """The period-13 source stages alternative slots, and its container
     is the native encoder's (which takes the smaller of the two)."""
     src = _period13(45_000, 7)
-    pool, nb, out_lists, nb_of = enc._frontends([src], [0])
+    pool, nb, out_lists, nb_of, _ = enc._frontends([src], [0])
     alts = pool.a["meta"][:nb, 2]
     assert (alts >= 0).any() and nb > nb_of[0]
     assert enc.encode_many([src]) == [nat.encode_bytes(src)]
@@ -214,3 +218,112 @@ def test_kernel_args_match_encoder_layout(mixed, enc):
         steps = K.steps_of(kind, args["num"], M.N_COLS)[args["order"].long()]
         assert sorted(args["order"].tolist()) == list(range(nb))
         assert (steps[:-1] >= steps[1:]).all()   # longest first
+
+
+@pytest.fixture
+def chunk_calls(monkeypatch):
+    """Calls of each encode wrapper (their plain versions on the CPU)."""
+    calls = {"encode_literals": 0, "encode_lmds": 0}
+    for name in calls:
+        real = getattr(K, name)
+
+        def spy(real=real, name=name, **kw):
+            calls[name] += 1
+            return real(**kw)
+
+        monkeypatch.setattr(K, name, spy)
+    return calls
+
+
+@pytest.mark.parametrize("n_chunks", [2, 3])
+def test_chunked_encode_equals_tpu_encoder_interpret(n_chunks, mixed, enc,
+                                                     nat, chunk_calls,
+                                                     interpret, monkeypatch):
+    """``LZT_ENC_CHUNKS`` at 2 and 3, read by both encoders: the same
+    containers as ``TpuEncoder._encode_many_staged`` (its chunked
+    pipeline, Pallas kernels in interpret mode) and ``native.encode_bytes``;
+    each wrapper called once a chunk."""
+    monkeypatch.setenv("LZT_ENC_CHUNKS", str(n_chunks))
+    big = [i for i, s in enumerate(mixed) if len(s) > C.VN_CUTOFF]
+    ref = TpuEncoder(device_emission=True, frontend="native")
+    ref_stats: dict = {}
+    want = ref._encode_many_staged(mixed, big, [None] * len(mixed),
+                                   ref_stats)
+    assert ref_stats["pipeline_chunks"] == n_chunks
+    stats: dict = {}
+    got = enc.encode_many(mixed, stats)
+    for i in big:
+        assert got[i] == want[i], i
+    assert got == [nat.encode_bytes(s) for s in mixed]
+    assert stats["pipeline_chunks"] == n_chunks
+    assert chunk_calls == {"encode_literals": n_chunks,
+                           "encode_lmds": n_chunks}
+    assert STAGES | {"emit_dispatch"} <= set(stats)
+    nb = stats["download_bytes"] // (4 * (4 * M.N_COLS + 7))
+    assert stats["download_bytes"] == nb * 4 * (4 * M.N_COLS + 7)
+    assert stats["upload_bytes"] == nb * (8 * C.N_WEIGHTS
+                                          + 4 * (3 * M.N_COLS + 4))
+
+
+@pytest.mark.parametrize("setting,chunks", [("1", 1), ("0", 1), ("-3", 1),
+                                            ("5", 5), ("40", 5)])
+def test_chunk_count_is_clamped(setting, chunks, bigs, enc, nat,
+                                chunk_calls, monkeypatch):
+    """Clamped to [1, sources above VN_CUTOFF], as the JAX encoder does;
+    every count goes through the same stages."""
+    assert len(bigs) == 5
+    monkeypatch.setenv("LZT_ENC_CHUNKS", setting)
+    stats: dict = {}
+    assert enc.encode_many(bigs, stats) == [nat.encode_bytes(s) for s in bigs]
+    assert stats["pipeline_chunks"] == chunks
+    assert chunk_calls["encode_literals"] == chunks
+    assert STAGES | {"emit_dispatch"} <= set(stats)
+
+
+def test_chunks_deal_the_biggest_sources_round_robin(bigs, nat, monkeypatch):
+    """Chunk c holds the sources of rank c, c + n, ... by size, each
+    chunk's slots contiguous and in chunk order."""
+    monkeypatch.setenv("LZT_ENC_CHUNKS", "2")
+    seen = []
+    real = nat.frontend_stage
+
+    def stage(src, bufs, counter, out_idx):
+        seen.append(len(src))
+        return real(src, bufs, counter, out_idx)
+
+    monkeypatch.setattr(nat, "frontend_stage", stage)
+    spans = chunk_spans("cpu", bigs, monkeypatch)
+    ranked = sorted(map(len, bigs), reverse=True)
+    assert sorted(seen[:3], reverse=True) == ranked[0::2]
+    assert sorted(seen[3:], reverse=True) == ranked[1::2]
+    assert spans[0][0] == 0 and spans[0][1] == spans[1][0] < spans[1][1]
+
+
+def test_chunked_pool_overflow_in_the_second_chunk(monkeypatch):
+    """The second chunk overflows the pool: the encoder doubles it and
+    stages every chunk again; the containers do not change."""
+    raws = [r for r, _ in corpus.small_batch(seed=24, n_fse=6, lo=40_000,
+                                             hi=120_000)]
+    raws.append(_period13(45_000, 24))
+    monkeypatch.setenv("LZT_ENC_CHUNKS", "2")
+    got, asked, spans, first = overflow_in_second_chunk("cpu", raws,
+                                                        monkeypatch)
+    assert asked == [first[0][1] + 1, 2 * (first[0][1] + 1)]
+    assert spans == [first[0]] + first
+    assert got == [native_runtime().encode_bytes(r) for r in raws]
+
+
+def test_an_alternative_outside_its_chunk_raises(bigs, nat, monkeypatch):
+    """A period-split alternative slot is staged by its block's own
+    frontend call; one pointing outside its chunk is refused."""
+    monkeypatch.setenv("LZT_ENC_CHUNKS", "2")
+    real = nat.frontend_stage
+
+    def stage(src, bufs, counter, out_idx):
+        n = real(src, bufs, counter, out_idx)
+        bufs[6][int(out_idx[0]), 2] = int(counter[0]) + 7
+        return n
+
+    monkeypatch.setattr(nat, "frontend_stage", stage)
+    with pytest.raises(RuntimeError, match="outside its chunk"):
+        TorchEncoder("cpu").encode_many(bigs)

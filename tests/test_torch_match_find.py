@@ -289,3 +289,68 @@ def test_unknown_frontend_raises(frontend):
 
 def test_default_frontend_is_native():
     assert TorchEncoder("cpu").frontend == "native"
+
+
+def _edge_windows(seed: int):
+    """Windows over one source with history context, as the JAX package's
+    test of its two branches builds them, plus a window of another size
+    on a second source."""
+    rng = np.random.default_rng(seed)
+    data = words(rng, 2500)
+    wins = []
+    for start in range(0, len(data), 2048):
+        base, ctx = max(start - 1024, 0), min(start, 1024)
+        n = min(len(data), start + 2048 + 3) - base
+        wins.append((0, base, ctx, n, 8192))
+    other = corpus.make_raw("html", 3_000, rng) * 3
+    wins.append((1, 0, 0, len(other), 16384))
+    return {0: np.frombuffer(data, np.uint8),
+            1: np.frombuffer(other, np.uint8)}, wins
+
+
+@pytest.mark.parametrize("vn", [False, True])
+def test_argsort_windows_equal_tpu_encoder(vn, enc, monkeypatch):
+    """``LZT_DEV_GROUPED=0``: ``_windows_compact`` (the argsort branch,
+    ``find_matches_compact`` as torch ops) == ``TpuEncoder._windows_compact``
+    under the same setting, window by window, and == the grouped path."""
+    fulls, wins = _edge_windows(43)
+    grouped = enc._windows_compact(fulls, wins, vn)
+    monkeypatch.setenv("LZT_DEV_GROUPED", "0")
+    want = TpuEncoder()._windows_compact(fulls, wins, vn)
+    stats: dict = {}
+    got = enc._windows_compact(fulls, wins, vn, stats)
+    assert got.keys() == want.keys() == grouped.keys()
+    assert len(got) == len(wins)
+    for k in want:
+        for g, w, h in zip(got[k], want[k], grouped[k]):
+            assert g.dtype == w.dtype
+            np.testing.assert_array_equal(g, w)
+            np.testing.assert_array_equal(g, h)
+    det = stats["detail_match"]
+    assert [d["N"] for d in det] == [8192, 16384]
+    assert {"win_prep", "matchfind", "arbitrate"} <= set(stats)
+    assert all(d["download_bytes"] > 0 and d["upload_bytes"] == d["windows"]
+               * (d["N"] + 12) for d in det)
+
+
+@pytest.mark.parametrize("setting", ["0", "", "2"])
+def test_argsort_encode_equals_native(setting, mixed, enc, nat, monkeypatch):
+    """Any value but "1" takes the argsort branch, as in the JAX encoder:
+    the native encoder's containers from ``encode_many`` and
+    ``encode_bytes``, and no launch of the grouped-match entry."""
+    monkeypatch.setenv("LZT_DEV_GROUPED", setting)
+    monkeypatch.setattr(MF, "match_rows", lambda *a, **k: pytest.fail(
+        "the argsort branch called match_rows"))
+    stats: dict = {}
+    assert enc.encode_many(mixed, stats) == [nat.encode_bytes(s)
+                                             for s in mixed]
+    assert DEVICE_STAGES <= set(stats)
+    assert enc.encode_bytes(mixed[2]) == nat.encode_bytes(mixed[2])
+
+
+def test_argsort_two_window_input_equals_native(enc, nat, monkeypatch):
+    monkeypatch.setenv("LZT_DEV_GROUPED", "0")
+    rng = np.random.default_rng(31)
+    src = corpus.make_raw("text", M.WINDOW_STRIDE + 30_000, rng)
+    assert [w[2] for w in enc.windows([src])] == [0, M.WINDOW_CTX]
+    assert enc.encode_many([src]) == [nat.encode_bytes(src)]

@@ -15,13 +15,18 @@ import sys
 import numpy as np
 import pytest
 
+from kit import FAMILIES
 from lzfse_rust_tpu.runtime import native as jax_native
 from lzfse_rust_tpu.spec import container as jax_container
+from lzfse_rust_tpu.spec import frontend as jax_frontend
 from lzfse_rust_tpu.spec import match_find as jax_match_find
+from lzfse_rust_tpu.spec import streaming as jax_streaming
 from lzfse_rust_tpu_torch.runtime import build
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.spec import container as port_container
+from lzfse_rust_tpu_torch.spec import frontend as port_frontend
 from lzfse_rust_tpu_torch.spec import match_find as port_match_find
+from lzfse_rust_tpu_torch.spec import streaming as port_streaming
 from lzfse_rust_tpu_torch.utils import corpus
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
@@ -40,12 +45,14 @@ def _outcome(fn):
         return (type(exc).__name__, str(exc))
 
 
-def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
+def test_cpu_decode_and_encode_load_nothing_of_the_jax_package(tmp_path):
     """Every module of the port and chip_smoke.py imported, then a CPU
     decode (with each ``use_kernels`` / ``use_native_rebuild`` choice, and
-    on a mesh of three CPU shards) and encode (with each frontend, and on
-    the mesh) of a small seeded batch: no ``lzfse_rust_tpu`` module is
-    loaded afterwards."""
+    on a mesh of three CPU shards) and encode (with each frontend, with
+    ``LZT_ENC_CHUNKS`` 2 and ``LZT_DEV_GROUPED`` 0, and on the mesh) of a
+    small seeded batch, and the public API (one-shot, ring and ``cli.main``
+    both ways): no ``lzfse_rust_tpu`` module is loaded afterwards."""
+    src, mid, out = (str(tmp_path / n) for n in ("raw", "lzfse", "out"))
     code = ("import sys\n"
             + "".join(f"import {m}\n" for m in MODULES)
             + "import chip_smoke\n"
@@ -71,6 +78,23 @@ def test_cpu_decode_and_encode_load_nothing_of_the_jax_package():
             "    [c for _, c in pairs])\n"
             "assert got == [r for r, _ in pairs]\n"
             "assert TorchEncoder('cpu', mesh=mesh).encode_many(raws) == want\n"
+            "import io, os\n"
+            "os.environ['LZT_ENC_CHUNKS'] = '2'\n"
+            "assert TorchEncoder('cpu').encode_many(raws) == want\n"
+            "os.environ['LZT_DEV_GROUPED'] = '0'\n"
+            "assert dev.encode_many(raws) == want\n"
+            "import lzfse_rust_tpu_torch as lz\n"
+            "from lzfse_rust_tpu_torch import cli\n"
+            "assert [lz.encode_bytes(r) for r in raws] == want\n"
+            "assert [lz.decode_bytes(c) for c in want] == raws\n"
+            "sink = io.BytesIO()\n"
+            "lz.LzfseRingEncoder().encode(io.BytesIO(raws[0]), sink)\n"
+            "assert lz.LzfseRingDecoder().reader_bytes(sink.getvalue())"
+            ".read() == raws[0]\n"
+            f"open({src!r}, 'wb').write(raws[0])\n"
+            f"assert cli.main(['-encode', '-i', {src!r}, '-o', {mid!r}]) == 0\n"
+            f"assert cli.main(['-decode', '-i', {mid!r}, '-o', {out!r}]) == 0\n"
+            f"assert open({out!r}, 'rb').read() == raws[0]\n"
             "bad = sorted(m for m in sys.modules\n"
             "             if m == 'lzfse_rust_tpu'\n"
             "             or m.startswith('lzfse_rust_tpu.'))\n"
@@ -245,3 +269,51 @@ def test_spec_lcp_extension_equals_the_original(direction, match_inputs):
             got = getattr(port_match_find, name)(*args)
             want = getattr(jax_match_find, name)(*args)
             np.testing.assert_array_equal(got, want)
+
+
+@pytest.mark.parametrize("family", [name for name, _ in FAMILIES])
+def test_spec_frontend_equals_the_original(family):
+    """The port's ``spec.frontend.encode_bytes`` (and its FSE, LZVN and RAW
+    bodies) gives the original's bytes on the kit families."""
+    gen = dict(FAMILIES)[family]
+    for size in (0, 17, 3_000, 60_000):
+        data = gen().read(size)
+        got = port_frontend.encode_bytes(data)
+        assert got == jax_frontend.encode_bytes(data)
+        assert port_container.decode_bytes(got) == data
+    data = gen().read(5_000)
+    for name in ("encode_fse", "encode_vn", "encode_raw"):
+        assert getattr(port_frontend, name)(data) == getattr(
+            jax_frontend, name)(data)
+
+
+def _pushed(mk, src: bytes, chunk: int):
+    """``src`` pushed through a stream decoder in chunks: the output, or
+    the exception's class name and message."""
+    def run():
+        dec = mk()
+        out = bytearray()
+        i = 0
+        while i < len(src):
+            i += dec.push(src[i:i + chunk])
+            out += dec.pull()
+        out += dec.pull()
+        dec.finish()
+        return bytes(out)
+    return _outcome(run)
+
+
+@pytest.mark.parametrize("family", [name for name, _ in FAMILIES])
+def test_spec_stream_decoder_equals_the_original(family):
+    """The port's ``SpecStreamDecoder`` against the original on the kit
+    families' containers (natively encoded, so FSE, LZVN and RAW blocks
+    all occur) and on their truncated and extended copies."""
+    gen = dict(FAMILIES)[family]
+    nat = native_runtime()
+    for size in (0, 3_000, 200_000):
+        good = nat.encode_bytes(gen().read(size))
+        for src in (good, good[:len(good) // 2], good + b"\x00"):
+            for chunk in (13, 4096):
+                want = _pushed(jax_streaming.SpecStreamDecoder, src, chunk)
+                assert _pushed(port_streaming.SpecStreamDecoder, src,
+                               chunk) == want

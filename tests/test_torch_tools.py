@@ -404,3 +404,19 @@ def test_mesh_tools_raise_without_a_card(argv, monkeypatch, capsys):
         with pytest.raises(common.NoCardError):
             tool.main(argv if tool is demo_multihost else [])
     assert capsys.readouterr().out.splitlines() == ["CARD LINE"] * 2
+
+
+def test_rowgather_counts_each_row_read_and_written_once():
+    from lzfse_rust_tpu_torch.tools import microbench_rowgather as RG
+    assert RG.gather_bytes(64, torch.uint8, 10) == 10 * 8 + 2 * 10 * 64
+    assert RG.gather_bytes(16, torch.int32) == RG.N * (8 + 2 * 64)
+    assert [w for _, w, _ in RG.LAYOUTS] == [64, 16, 32, 128]
+
+
+def test_bench_corpus_ring_helpers_round_trip():
+    from lzfse_rust_tpu_torch import api
+    from lzfse_rust_tpu_torch.tools import bench_corpus as BC
+    raw = CP.make_raw("urls", 200_000, np.random.default_rng(8))
+    blob = BC._ring_encode(api, raw)
+    assert BC._ring_decode(api, blob) == raw
+    assert api.decode_bytes(blob) == raw

@@ -204,3 +204,45 @@ def rebuild_case(name: str, seed: int, B: int = 6, R: int = 24, L: int = 96,
     elif name == "total_mismatch":
         n_raw[k] += 1
     return lits, rows, n_raw, n_out
+
+
+def chunk_spans(device: str, raws, monkeypatch) -> list:
+    """The slot spans [s0, s1) of the chunks ``TorchEncoder(device)``
+    emits for ``raws`` under the ``LZT_ENC_CHUNKS`` already set, recorded
+    by a spy on ``_emit_chunk`` that stays in place (``monkeypatch``)."""
+    from lzfse_rust_tpu_torch.models import encoder as M
+    spans: list = []
+    real = M.TorchEncoder._emit_chunk
+
+    def spy(self, pool, s0, s1, clock):
+        spans.append((s0, s1))
+        return real(self, pool, s0, s1, clock)
+
+    monkeypatch.setattr(M.TorchEncoder, "_emit_chunk", spy)
+    M.TorchEncoder(device).encode_many(raws)
+    return spans
+
+
+def overflow_in_second_chunk(device: str, raws, monkeypatch):
+    """Encode ``raws`` with a staging pool that holds the first chunk's
+    slots and one more, so the second chunk's frontends overflow it.
+    Returns (containers, pool sizes asked, chunk spans emitted in order,
+    the chunk spans of an encode with a large pool)."""
+    from lzfse_rust_tpu_torch.models import encoder as M
+    spans = chunk_spans(device, raws, monkeypatch)
+    first = list(spans)
+    assert len(first) >= 2 and first[1][1] - first[1][0] >= 2, first
+    spans.clear()
+    bound = first[0][1] + 1
+    asked: list = []
+    real = M.TorchEncoder._staging
+
+    def staging(self, slots):
+        asked.append(slots)
+        return real(self, slots)
+
+    monkeypatch.setattr(M.TorchEncoder, "_staging", staging)
+    monkeypatch.setattr(M, "_slot_bound", lambda sources, big: bound)
+    monkeypatch.setattr(M, "_round_up", lambda n, step: n)
+    out = M.TorchEncoder(device).encode_many(raws)
+    return out, asked, list(spans), first
