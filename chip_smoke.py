@@ -1,5 +1,5 @@
 #!/usr/bin/env python3
-"""Drive the PyTorch port's serving decode (host and device rebuild), both encode frontends (with the chunked pipeline and the argsort branch), the multi-device paths, the public API and CLI, and the probes once on an NVIDIA GPU.
+"""Drive the PyTorch port's serving decode (host and device rebuild), both encode frontends (with the chunked pipeline, the argsort branch and host emission), the multi-device paths, the public API and CLI, and the probes once on an NVIDIA GPU.
 
     python3 chip_smoke.py
 
@@ -51,6 +51,14 @@ Phases, one line each; any failure exits non-zero and prints no result:
    kernel and both encode kernels launched; the stage split, the windows
    per size, the bytes up and down and the rate beside the native
    frontend's; ``encode_bytes`` on the largest and a small input;
+8a. encode_host: ``TorchEncoder("cuda", device_emission=False)`` (host
+   emission: the device windows' matches, then ``native.select_emit_fse``
+   per source on host threads) on the small mixed batch (warm-up), then on
+   the same raw inputs (timed): every output must equal its corpus
+   container, ``last_emission`` must be ``"host"``, the grouped match
+   kernel must launch and neither encode kernel; its stage split beside
+   encode_device's from this run; ``encode_bytes`` on the largest input;
+   then ``LZT_DEV_GROUPED=0`` with host emission on encode_argsort's cut;
 8b. mesh: several devices (``parallel/mesh.py``), on every card when there
    are two or more, else on ``cuda:0`` four times (the shards take turns on
    the one card): ``parallel/dryrun.dryrun_multichip(4)`` on the card;
@@ -802,7 +810,71 @@ def encode_device_run(enc, pairs, native_gbps: float) -> dict:
           f"{wall * 1e3:.3f} ms = {raw_bytes / wall / 1e9:.4f} GB/s "
           f"(native frontend, same run: {native_gbps:.4f} GB/s)", flush=True)
     encode_bytes_check("encode_device_bytes", enc, pairs)
-    return {"match_grouped": launches["match_grouped"]}
+    return {"match_grouped": launches["match_grouped"]}, split, wall
+
+
+def encode_host_run(pairs, device_run: tuple) -> None:
+    """``TorchEncoder("cuda", device_emission=False).encode_many`` on the
+    batch's raw inputs: warm-up on the small mixed batch, then the timed
+    run, beside the device frontend's ``(split, wall)`` from this run;
+    ``encode_bytes`` on the largest input; then the argsort branch with
+    host emission on ``argsort_cut``."""
+    from lzfse_rust_tpu_torch import TorchEncoder
+    from lzfse_rust_tpu_torch.ops import cuda_encode as KE
+    from lzfse_rust_tpu_torch.ops import match_find as MF
+    from lzfse_rust_tpu_torch.utils import corpus as CP
+    pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
+    raws = [r for r, _ in pairs]
+    raw_bytes = sum(map(len, raws))
+    enc = TorchEncoder("cuda", device_emission=False)
+    enc.encode_many([r for r, c in CP.small_batch(seed=1) if c != CP.EMPTY])
+    stats: dict = {}
+    reset_launches()
+    t = time.perf_counter()
+    outs = enc.encode_many(raws, stats)
+    wall = time.perf_counter() - t
+    launches = {**MF.launches, **KE.launches}
+    bad = sum(o != c for o, (_, c) in zip(outs, pairs))
+    n_win = len(TorchEncoder.windows(raws))
+    phase("encode_host", bad == 0 and enc.last_emission == "host"
+          and launches["match_grouped"] > 0
+          and not any(KE.launches.values())
+          and "detail_device" not in stats,
+          f"{len(outs)} sources, {n_win} windows, container mismatches "
+          f"{bad}, last_emission {enc.last_emission!r}, launches {launches}")
+    split = {k: round(v * 1e3, 3) for k, v in stats.items()
+             if isinstance(v, float)}
+    match_dev = {k: round(sum(d[k] for d in stats["detail_match"]), 3)
+                 for k in ("upload_ms", "kernel_ms", "download_ms")}
+    d_split, d_wall = device_run
+    print(f"[encode_host] stage split ms {split}; match finder events ms "
+          f"{match_dev}", flush=True)
+    print(f"[encode_host] encode_device's stage split ms, same run: "
+          f"{d_split}", flush=True)
+    print(f"[encode_host] full encode {raw_bytes} bytes in "
+          f"{wall * 1e3:.3f} ms = {raw_bytes / wall / 1e9:.4f} GB/s "
+          f"(encode_device, same run: {d_wall * 1e3:.3f} ms = "
+          f"{raw_bytes / d_wall / 1e9:.4f} GB/s)", flush=True)
+    big = max(pairs, key=lambda p: len(p[0]))
+    enc.last_emission = None
+    t = time.perf_counter()
+    same = enc.encode_bytes(big[0]) == big[1]
+    phase("encode_host", same and enc.last_emission == "host",
+          f"encode_bytes on {len(big[0])} bytes equals the corpus container "
+          f"in {time.perf_counter() - t:.2f} s")
+    sub, _ = argsort_cut(pairs)
+    with env_var("LZT_DEV_GROUPED", "0"):
+        reset_launches()
+        t = time.perf_counter()
+        got = enc.encode_many([r for r, _ in sub])
+        cut_wall = time.perf_counter() - t
+    launches = {**MF.launches, **KE.launches}
+    phase("encode_host", all(o == c for o, (_, c) in zip(got, sub))
+          and enc.last_emission == "host"
+          and not any(launches.values()),
+          f"LZT_DEV_GROUPED=0 on encode_argsort's cut ({len(sub)} sources): "
+          f"every container == the corpus's, launches {launches}, "
+          f"{cut_wall * 1e3:.3f} ms")
 
 
 def mesh_devices() -> tuple[list, str]:
@@ -1155,6 +1227,19 @@ def encode_chunks_run(enc, pairs, one_pass) -> None:
               f"over chunks) {dev}", flush=True)
 
 
+def argsort_cut(pairs) -> tuple[list, dict]:
+    """For each window size the device frontend makes of ``pairs``' raw
+    inputs, the smallest source with a window of that size: (those pairs,
+    {N: source index})."""
+    from lzfse_rust_tpu_torch import TorchEncoder
+    raws = [r for r, _ in pairs]
+    pick: dict = {}
+    for i, _, _, _, N in TorchEncoder.windows(raws):
+        if N not in pick or len(raws[i]) < len(raws[pick[N]]):
+            pick[N] = i
+    return [pairs[i] for i in sorted(set(pick.values()))], pick
+
+
 def encode_argsort_run(pairs) -> None:
     """``TorchEncoder("cuda", frontend="device")`` with ``LZT_DEV_GROUPED=0``
     (the argsort branch: ``find_matches_compact`` as torch ops on the card)
@@ -1170,12 +1255,8 @@ def encode_argsort_run(pairs) -> None:
     pairs = [(r, c) for r, c in pairs if c != CP.EMPTY]
     raws = [r for r, _ in pairs]
     wins = TorchEncoder.windows(raws)
-    pick = {}
-    for i, _, _, _, N in wins:
-        if N not in pick or len(raws[i]) < len(raws[pick[N]]):
-            pick[N] = i
+    sub, pick = argsort_cut(pairs)
     cut = sorted(set(pick.values()))
-    sub = [pairs[i] for i in cut]
     enc = TorchEncoder("cuda", frontend="device")
     with env_var("LZT_DEV_GROUPED", "0"):
         torch.cuda.reset_peak_memory_stats()
@@ -1273,7 +1354,10 @@ def main() -> int:
         tables_bound(pairs)
         enc_launches, native_gbps, one_pass = encode_run(enc, pairs)
         launches.update(enc_launches)
-        launches.update(encode_device_run(enc_dev, pairs, native_gbps))
+        dev_launches, *device_run = encode_device_run(enc_dev, pairs,
+                                                      native_gbps)
+        launches.update(dev_launches)
+        encode_host_run(pairs, device_run)
         mesh_run(pairs, default)
         api_run(pairs, digests, default[2], one_pass)
         cli_run(pairs)

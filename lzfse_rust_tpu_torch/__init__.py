@@ -45,6 +45,8 @@ from .base.errors import (BadBitStream, BadBlock, DecodeError, FseError,
 from .models.decoder import TorchDecoder
 from .models.encoder import TorchEncoder
 
+__version__ = "0.1.0"
+
 __all__ = [
     "encode_bytes", "decode_bytes", "encode_many", "decode_many", "probe",
     "LzfseEncoder", "LzfseDecoder", "LzfseRingEncoder", "LzfseRingDecoder",

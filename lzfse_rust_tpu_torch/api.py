@@ -98,7 +98,9 @@ def decode_many(sources, max_workers: int | None = None,
 
     ``device="cuda"`` (the default) decodes the batch in one call of
     ``TorchDecoder`` on the card; a CUDA device without a card raises.
-    Malformed input raises what the host route raises, in batch order.
+    A malformed batch, whatever its element types (a ``memoryview`` or a
+    ``bytearray`` too), raises what the host route raises on it: the JAX
+    API's class and message, for the first bad container in batch order.
     ``device="cpu"`` decodes on a host thread pool of ``max_workers``: the
     native runtime releases the GIL during calls, so the pool scales across
     cores. Either way the results are byte-identical to sequential decodes.
@@ -108,6 +110,12 @@ def decode_many(sources, max_workers: int | None = None,
         return []
     if not _on_card(device):
         return _decode_many_host(sources, max_workers)
+    odd = [type(s).__name__ for s in sources if not isinstance(s, bytes)]
+    if odd:
+        # the card's parse takes bytes objects only; the host route's
+        # ctypes calls reject the others with the JAX API's error
+        _decode_many_host(sources, max_workers)
+        raise TypeError(f"decode_many: containers must be bytes, got {odd[0]}")
     dec, lock = _card("decode", torch.device(device))
     try:
         with lock:

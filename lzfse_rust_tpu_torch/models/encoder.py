@@ -78,6 +78,14 @@ window size at a time, and no mesh); the other steps are the same. It is
 kept for parity with the JAX encoder and as a reference for the grouped
 kernel, not as a faster choice.
 
+``device_emission=False`` ports ``TpuEncoder(device_emission=False)``:
+matches are found in the device windows (steps 1-5 above, whatever
+``frontend`` says, as the JAX encoder takes its native frontend only with
+device emission), then ``native.select_emit_fse`` selects and emits each
+source's blocks on the host, one call a source on a host thread pool
+(step 6, ``select_emit``, in place of steps 6-7). Nothing is emitted on
+the device.
+
 Every output is byte-identical to ``native.encode_bytes``. Unlike the JAX
 encoder, nothing falls back to a host encoder: an error in a kernel, a
 transfer or a native call raises. ``device="cpu"`` runs the kernels' plain
@@ -266,6 +274,13 @@ def _merge(full: np.ndarray, parts) -> MatchStream:
                        fwd_len=fwd_k[order], back_max=back_k[order])
 
 
+def _stream_rows(stream: MatchStream) -> np.ndarray:
+    """A match stream as the native selection takes it: (pos, match_pos,
+    fwd_len, back_max) rows."""
+    return np.stack([stream.pos, stream.match_pos, stream.fwd_len,
+                     stream.back_max], axis=1)
+
+
 def _slot_bound(sources, big) -> int:
     """The staging pool's first size for the sources ``big``: every closed
     block consumes >= 40000 source bytes (10000 rows of >= 4-byte matches,
@@ -300,17 +315,25 @@ class TorchEncoder:
     ``frontend`` picks the match finder: ``"native"`` (the default, the
     native history-table frontend per source) or ``"device"`` (windowed
     match finding in the kernel of ``ops/match_find.py``, on several
-    devices with a ``mesh``)."""
+    devices with a ``mesh``). ``device_emission=False`` emits on the host
+    instead (``native.select_emit_fse`` per source, after the device
+    frontend's match finding)."""
 
     def __init__(self, device="cuda", frontend: str = _DEFAULT_FRONTEND,
-                 mesh=None):
+                 mesh=None, device_emission: bool = True):
         """``mesh`` (``parallel/mesh.make_mesh``, devices of ``device``'s
         type): the device frontend's window batch of each window size,
         padded with inert windows to a multiple of the mesh size, splits
         into contiguous shards, each matched on its device
         (``parallel/mesh.sharded_grouped_match``); the emission stays on
         ``device``. A mesh implies ``frontend="device"``; without one the
-        default frontend is ``"native"``."""
+        default frontend is ``"native"``.
+
+        ``device_emission=False`` (``TpuEncoder(device_emission=False)``):
+        the device windows find the matches and the host selects and emits
+        the blocks. The default frontend is then ``"device"``, and
+        ``frontend="native"`` is kept as given but not run, as the JAX
+        encoder runs its native frontend only with device emission."""
         self.device = torch.device(device)
         if self.device.type == "cuda":
             if not torch.cuda.is_available():
@@ -319,12 +342,13 @@ class TorchEncoder:
         elif self.device.type != "cpu":
             raise ValueError(f"TorchEncoder: unsupported device {device!r}")
         if frontend is _DEFAULT_FRONTEND:
-            frontend = "native" if mesh is None else "device"
+            frontend = ("native" if mesh is None and device_emission
+                        else "device")
         if frontend not in FRONTENDS:
             raise ValueError(f"TorchEncoder: frontend must be one of "
                              f"{FRONTENDS}, got {frontend!r}")
         if mesh is not None:
-            if frontend != "device":
+            if frontend != "device" and device_emission:
                 raise ValueError("TorchEncoder: a mesh shards the device "
                                  "frontend; frontend='native' has no "
                                  "device stage to shard")
@@ -334,6 +358,10 @@ class TorchEncoder:
                                  f"{self.device.type!r}")
         self.frontend = frontend
         self.mesh = mesh
+        self.device_emission = bool(device_emission)
+        # the JAX dispatch: the native frontend runs only with device
+        # emission; every other combination finds matches in the windows
+        self._windows_path = frontend == "device" or not device_emission
         self._native = native_runtime()
         self._pool: _Pool | None = None
         self._pool_free = None   # event: the last upload from _pool is done
@@ -544,7 +572,11 @@ class TorchEncoder:
         ``download_bytes``) and, on a card, the CUDA-event milliseconds of
         its upload, E tables and kernels, and download under
         ``detail_device``. The device frontend adds ``detail_match``, one
-        dict per window size (see ``_windows_compact_grouped``).
+        dict per window size (see ``_windows_compact_grouped``). With
+        ``device_emission=False`` the stages are ``small``, ``win_prep``,
+        ``matchfind``, ``arbitrate``, ``merge`` and ``select_emit`` (the
+        host's selection and emission), with ``detail_match``; there is no
+        ``detail_device``, ``upload_bytes`` or ``download_bytes``.
         Not re-entrant: the staging buffers belong to the encoder."""
         clock = _Clock(stats)
         results: list = [None] * len(sources)
@@ -557,7 +589,7 @@ class TorchEncoder:
         clock.mark("small")
         if not big:
             return results
-        if self.frontend == "device":
+        if self._windows_path:
             return self._encode_many_device(sources, big, results, stats,
                                             clock)
         n_chunks = min(max(int(os.environ.get("LZT_ENC_CHUNKS", "1")), 1),
@@ -599,13 +631,20 @@ class TorchEncoder:
 
     def encode_bytes(self, src: bytes) -> bytes:
         """Encode one source: the frontend's blocks, emitted on the device
-        one block per slot. Byte-identical to ``native.encode_bytes``."""
+        one block per slot (with ``device_emission=False``, the device
+        windows' matches selected and emitted on the host).
+        Byte-identical to ``native.encode_bytes``."""
         if len(src) <= C.VN_CUTOFF:
             return self._native.encode_bytes(src)
-        if self.frontend == "device":
+        if not self._windows_path:
+            blocks = _parse_blocks(self._native.frontend_blocks(src))
+        elif self.device_emission:
             blocks = self._select_blocks(src, self._device_matches(src, False))
         else:
-            blocks = _parse_blocks(self._native.frontend_blocks(src))
+            body = self._native.select_emit_fse(
+                src, _stream_rows(self._device_matches(src, False)))
+            self.last_emission = "host"
+            return body + EOS
         body = b"".join(self._emit_best(blocks))
         self.last_emission = "device"
         return body + EOS
@@ -644,7 +683,9 @@ class TorchEncoder:
     def _encode_many_device(self, sources, big, results, stats, clock):
         """``encode_many`` with the device frontend (``TpuEncoder``'s
         ``frontend="device"`` branch): windowed device match finding, then
-        native selection and one emission pass over every block."""
+        native selection and one emission pass over every block; with
+        ``device_emission=False``, ``native.select_emit_fse`` per source on
+        host threads instead."""
         wins = self.windows(sources)
         fulls = {i: np.frombuffer(sources[i], dtype=np.uint8) for i in big}
         clock.mark("win_prep")
@@ -654,6 +695,14 @@ class TorchEncoder:
             parts[w[0]].append(win_out[k])
         streams = {i: _merge(fulls[i], parts[i]) for i in big}
         clock.mark("merge")
+        if not self.device_emission:
+            bodies = _map(lambda i: self._native.select_emit_fse(
+                sources[i], _stream_rows(streams[i])), big)
+            for i, body in zip(big, bodies):
+                results[i] = body + EOS
+            clock.mark("select_emit")
+            self.last_emission = "host"
+            return results
         per_src = {i: self._select_blocks(sources[i], streams[i]) for i in big}
         clock.mark("select")
         flat: list = []
@@ -679,9 +728,8 @@ class TorchEncoder:
     def _select_blocks(self, src: bytes, stream: MatchStream):
         """Native selection and block splitting of a match stream, without
         emission: the raw blocks ``_emit_best`` takes."""
-        rows = np.stack([stream.pos, stream.match_pos, stream.fwd_len,
-                         stream.back_max], axis=1)
-        return _parse_blocks(self._native.select_blocks(src, rows))
+        return _parse_blocks(self._native.select_blocks(src,
+                                                        _stream_rows(stream)))
 
     def _window_inputs(self, fulls: dict, wins: list, N: int,
                        vn: bool, n_rows: int | None = None) -> dict:

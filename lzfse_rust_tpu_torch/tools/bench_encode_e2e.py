@@ -35,14 +35,28 @@ from .common import require_card, second_smallest, serving_pairs
 
 
 def main(argv=None) -> int:
-    from .. import TorchEncoder
     argv = sys.argv[1:] if argv is None else argv
     require_card("bench_encode_e2e")
     runs = int(argv[0]) if argv else 5
     pairs = [(r, c) for r, c in serving_pairs() if c != CP.EMPTY]
+    out = measure(pairs, runs)
+    if os.environ.get("LZT_ENC_DEVFE", "0") == "1":
+        out["device_frontend"] = device_frontend(pairs)
+    print(json.dumps(out))
+    return 0
+
+
+def measure(pairs, runs: int = 5, enc=None) -> dict:
+    """``enc.encode_many`` (default ``TorchEncoder("cuda")``) on the raw
+    inputs of ``pairs``: one warm-up whose every output must equal its
+    container (else ``RuntimeError``), then ``runs`` timed runs; the wall,
+    each host stage and each CUDA-event device stage the second-smallest
+    over the runs. Prints two summary lines; returns the tool's JSON
+    object."""
+    from .. import TorchEncoder
     raws = [r for r, _ in pairs]
     total = sum(map(len, raws))
-    enc = TorchEncoder("cuda")
+    enc = TorchEncoder("cuda") if enc is None else enc
     outs = enc.encode_many(raws)
     bad = sum(o != c for o, (_, c) in zip(outs, pairs))
     if bad:
@@ -59,7 +73,7 @@ def main(argv=None) -> int:
             for k in ("small", "frontend", "emit_prep", "emit_dispatch",
                       "emit_kernels", "pack") if k in stats[0]}
     dev = {k: second_smallest([s["detail_device"][k] for s in stats])
-           for k in stats[0]["detail_device"]}
+           for k in stats[0].get("detail_device", {})}
     out = {"metric": "full_encode_GBps", "value": total / wall / 1e9,
            "raw_bytes": total, "n_sources": len(raws), "runs": runs,
            "wall_ms": wall * 1e3, "stages_ms": host,
@@ -76,10 +90,7 @@ def main(argv=None) -> int:
           + "; device events ms " + ", ".join(f"{k} {v:.3f}"
                                                for k, v in dev.items()),
           flush=True)
-    if os.environ.get("LZT_ENC_DEVFE", "0") == "1":
-        out["device_frontend"] = device_frontend(pairs)
-    print(json.dumps(out))
-    return 0
+    return out
 
 
 def device_frontend(pairs, runs: int = 2) -> dict:

@@ -37,6 +37,9 @@ run() { # name timeout_s module [args...]
 want() { [ $# -le 1 ] || [[ " ${*:2} " == *" $1 "* ]]; }
 ARGS=("$@")
 
+# 0. the benchmark: full decode of the serving batch (SHA-gated), the
+# host baselines and the full encode
+want bench "${ARGS[@]}"       && { run bench 900 bench || exit 1; }
 # 1. correctness gates first: full decode and encode byte identity
 want corpus "${ARGS[@]}"      && { run corpus 600 check_corpus || exit 1; }
 want enc_id "${ARGS[@]}"      && { run enc_id 600 check_encoder_corpus || exit 1; }

@@ -241,15 +241,39 @@ def test_errors_equal_jax(case, decoder):
     assert got == want
 
 
-@pytest.mark.parametrize("case", list(_bad_inputs()))
+BUFFERS = {"memoryview": memoryview, "bytearray": bytearray}
+
+
+@pytest.mark.parametrize("case", list(_bad_inputs()) + list(BUFFERS))
 def test_batch_errors_equal_jax(case, route):
-    """A bad container between good ones: the JAX API's exception class
-    and message, whichever route the batch takes."""
+    """A bad container between good ones (or a good one in a ``memoryview``
+    or a ``bytearray``): the JAX API's exception class and message,
+    whichever route the batch takes."""
     good = [P.encode_bytes(_data(n)) for n in (4000, 300_000)]
-    batch = [good[0], _bad_inputs()[case], good[1]]
+    bad = (BUFFERS[case](good[1]) if case in BUFFERS
+           else _bad_inputs()[case])
+    batch = [good[0], bad, good[1]]
     want = _outcome(lambda: J.decode_many(batch))
     assert isinstance(want, tuple), want
     assert _outcome(lambda: P.decode_many(batch, device=route)) == want
+
+
+@pytest.mark.parametrize("size", [4000, 300_000])
+@pytest.mark.parametrize("buffer", list(BUFFERS))
+def test_buffer_batches_raise_as_jax(buffer, size, route):
+    """A batch of ``memoryview`` or ``bytearray`` objects, to decode and to
+    encode: the JAX API's exception class and message on both routes (the
+    card's parse takes bytes only, so the card route raises the host
+    route's error)."""
+    raw = _data(size)
+    for call, item in (("decode_many", P.encode_bytes(raw)),
+                       ("encode_many", raw)):
+        for n in (1, 2):
+            batch = [BUFFERS[buffer](item)] * n
+            want = _outcome(lambda: getattr(J, call)(batch))
+            assert isinstance(want, tuple), want
+            got = _outcome(lambda: getattr(P, call)(batch, device=route))
+            assert got == want, (call, n)
 
 
 @pytest.mark.parametrize("route", ["engines"], indirect=True)
@@ -333,6 +357,10 @@ def test_spec_stream_encoder_equals_jax(size):
 def test_chunk_constants_equal_jax():
     assert port_api.STREAM_CHUNK == jax_api.STREAM_CHUNK == 0x80000
     assert port_api._IO_CHUNK == jax_api._IO_CHUNK == 1 << 16
+
+
+def test_version_equals_jax():
+    assert P.__version__ == J.__version__ == "0.1.0"
 
 
 def test_all_exports_the_jax_names_and_the_models():

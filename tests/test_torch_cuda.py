@@ -918,3 +918,29 @@ def test_cuda_argsort_branch_on_a_two_window_source(monkeypatch):
     assert MF.launches["match_grouped"] == before["match_grouped"]
     assert all({"upload_ms", "kernel_ms", "download_ms"} <= set(d)
                for d in stats["detail_match"])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("grouped", ["1", "0"])
+def test_cuda_host_emission_on_a_two_window_source(grouped, monkeypatch):
+    """``device_emission=False``: the device windows' matches on the card
+    (the grouped kernel, or the argsort branch), then ``select_emit_fse``
+    on the host; no encode kernel runs."""
+    rng = np.random.default_rng(32)
+    sources = [corpus.make_raw("text", ME.WINDOW_STRIDE + 100_000, rng),
+               corpus.make_raw("html", 60_000, rng), b"tiny"]
+    monkeypatch.setenv("LZT_DEV_GROUPED", grouped)
+    enc = TorchEncoder("cuda", device_emission=False)
+    assert enc.frontend == "device"
+    before = {**KE.launches, **MF.launches}
+    stats: dict = {}
+    nat = native_runtime()
+    assert enc.encode_many(sources, stats) == [nat.encode_bytes(s)
+                                               for s in sources]
+    assert enc.last_emission == "host" and "select_emit" in stats
+    assert "detail_device" not in stats
+    assert all(KE.launches[k] == before[k] for k in KE.launches)
+    n_sizes = len({w[4] for w in enc.windows(sources)})
+    assert MF.launches["match_grouped"] == before["match_grouped"] + (
+        n_sizes if grouped == "1" else 0)
+    assert enc.encode_bytes(sources[0]) == nat.encode_bytes(sources[0])

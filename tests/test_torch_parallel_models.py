@@ -86,12 +86,15 @@ def test_encoder_mesh_equals_tpu_encoder_mesh_and_native():
     nat = native_runtime()
     assert want == [nat.encode_bytes(s) for s in sources]
     for n in (2, 3):
-        enc = TorchEncoder("cpu", mesh=make_mesh(["cpu"] * n))
-        stats: dict = {}
-        assert enc.encode_many(sources, stats) == want
-        assert all("sharded_ms" not in d and d["windows"] >= 1
-                   for d in stats["detail_match"])
-    assert enc.encode_bytes(sources[-1]) == want[-1]
+        for emission in (True, False):
+            enc = TorchEncoder("cpu", mesh=make_mesh(["cpu"] * n),
+                               device_emission=emission)
+            stats: dict = {}
+            assert enc.encode_many(sources, stats) == want
+            assert enc.last_emission == ("device" if emission else "host")
+            assert all("sharded_ms" not in d and d["windows"] >= 1
+                       for d in stats["detail_match"])
+            assert enc.encode_bytes(sources[-1]) == want[-1]
 
 
 def test_encoder_mesh_implies_the_device_frontend():
@@ -100,3 +103,21 @@ def test_encoder_mesh_implies_the_device_frontend():
     assert TorchEncoder("cpu").frontend == "native"
     with pytest.raises(ValueError, match="shards the device frontend"):
         TorchEncoder("cpu", frontend="native", mesh=mesh)
+
+
+def test_encoder_mesh_with_host_emission_shards_the_windows():
+    """``TpuEncoder(device_emission=False, frontend="native", mesh=...)``
+    runs the device windows on its mesh: the port takes that combination
+    too (its native frontend is not run) and gives the same containers."""
+    rng = np.random.default_rng(44)
+    sources = [corpus.make_raw("text", 30_000, rng), b"short",
+               corpus.make_raw("urls", 20_000, rng)]
+    mesh = jax_mesh(jax.devices()[:2])
+    ref = TpuEncoder(device_emission=False, frontend="native", mesh=mesh)
+    want = ref.encode_many(sources)
+    assert ref.last_emission == "host"
+    enc = TorchEncoder("cpu", frontend="native", mesh=make_mesh(["cpu"] * 2),
+                       device_emission=False)
+    stats: dict = {}
+    assert enc.encode_many(sources, stats) == want
+    assert enc.last_emission == "host" and "detail_match" in stats

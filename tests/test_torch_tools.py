@@ -16,6 +16,7 @@ import pkgutil
 import shutil
 import subprocess
 import sys
+import threading
 
 import numpy as np
 import pytest
@@ -23,7 +24,9 @@ import torch
 
 import lzfse_rust_tpu_torch.tools as tools_pkg
 from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
+from lzfse_rust_tpu_torch import api as port_api
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
+from lzfse_rust_tpu_torch.tools import bench as BENCH
 from lzfse_rust_tpu_torch.tools import bench_match_find as BMF
 from lzfse_rust_tpu_torch.tools import bench_rebuild, bench_stage_split
 from lzfse_rust_tpu_torch.tools import check_corpus
@@ -355,6 +358,7 @@ def test_card_queue_lists_every_tool_and_resumes(tmp_path):
             assert f" {name}" in text, name
     jobs = [line.split("&&")[0].split()[1] for line in text.splitlines()
             if line.startswith("want ")]
+    assert jobs[0] == "bench" and "run bench 900 bench " in text
     for job in jobs:
         (tmp_path / f"{job}.ok").touch()
     r = subprocess.run(["bash", str(QUEUE)], capture_output=True, text=True,
@@ -420,3 +424,97 @@ def test_bench_corpus_ring_helpers_round_trip():
     blob = BC._ring_encode(api, raw)
     assert BC._ring_decode(api, blob) == raw
     assert api.decode_bytes(blob) == raw
+
+
+@pytest.fixture
+def bench_on_cpu(monkeypatch):
+    """``tools/bench`` with its engines on the CPU (their plain versions)
+    and a small seeded batch in place of the serving batch; the API's card
+    route runs ``TorchDecoder("cpu")``, as ``tests/test_torch_api.py``
+    stands it in. Returns the batch sizes asked for, the batch and the
+    engines."""
+    small = CP.small_batch(seed=1, n_fse=2, lo=6_000, hi=12_000)
+    asked = []
+
+    def batch(seed, min_bytes):
+        asked.append((seed, min_bytes))
+        return small
+
+    monkeypatch.setattr(CP, "serving_batch", batch)
+    monkeypatch.setattr(BENCH, "require_card",
+                        lambda tool: print("CARD LINE") or "stand-in")
+    monkeypatch.setattr(BENCH, "card_line", lambda: "CARD LINE")
+    engines = (TorchDecoder("cpu"), TorchEncoder("cpu"))
+    monkeypatch.setattr(BENCH, "engines", lambda: engines)
+    card = (TorchDecoder("cpu"), threading.Lock())
+    monkeypatch.setattr(port_api, "_card", lambda kind, device: card)
+    return asked, small, engines
+
+
+def test_bench_prints_the_card_line_then_one_json_line(bench_on_cpu,
+                                                       capsys):
+    asked, small, _ = bench_on_cpu
+    assert BENCH.main(["--min-mib", "3"]) == 0
+    out = capsys.readouterr().out.splitlines()
+    assert len(out) == 2 and out[0] == "CARD LINE"
+    res = json.loads(out[1])
+    assert asked == [(0, 3 << 20)]
+    assert set(res) == {"metric", "value", "unit", "vs_baseline", "extra"}
+    assert (res["metric"], res["unit"]) == ("full_decode_GBps_card", "GB/s")
+    ex = res["extra"]
+    raw = sum(len(r) for r, _ in small)
+    assert len(ex["runs_ms"]) == BENCH.RUNS == 7
+    assert ex["min_ms"] <= ex["median_ms"] <= ex["max_ms"]
+    assert res["value"] == round(raw / ex["median_ms"] / 1e6, 4)
+    assert len(ex["api_card_route"]["runs_ms"]) == 7
+    assert ex["batch"]["raw_bytes"] == raw and "not the Snappy" in ex[
+        "batch"]["source"]
+    assert "one host thread" in ex["baseline"]["what"]
+    assert len(ex["baseline"]["runs_ms"]) == BENCH.BASELINE_RUNS
+    assert res["vs_baseline"] == round(res["value"] / ex["baseline"]["GBps"],
+                                       3)
+    assert ex["host_threads"]["threads"] >= 1
+    assert set(ex["stages_ms"]) == set(BENCH.STAGES)
+    enc = ex["encode"]
+    assert enc["full_encode_GBps_card"] > 0 and enc["byte_identical"]
+    assert enc["n_sources"] == sum(c != CP.EMPTY for _, c in small)
+
+
+@pytest.mark.parametrize("fault", ["corrupt", "fallback"])
+def test_bench_gate_fails_before_any_number(fault, bench_on_cpu, capsys,
+                                            monkeypatch):
+    _, _, (dec, _) = bench_on_cpu
+    real = dec.decode_many
+
+    def wrong(sources, stats=None):
+        outs = real(sources, stats)
+        if fault == "corrupt":
+            outs[0] = bytes([outs[0][0] ^ 1]) + outs[0][1:]
+        else:
+            stats["fallbacks"] = 1
+        return outs
+
+    monkeypatch.setattr(dec, "decode_many", wrong)
+    with pytest.raises(BENCH.GateError,
+                       match="SHA-256" if fault == "corrupt" else "fallback"):
+        BENCH.main([])
+    assert capsys.readouterr().out.splitlines() == ["CARD LINE"]
+
+
+@pytest.mark.parametrize("fault", ["raises", "differs"])
+def test_bench_encode_failure_fails_the_tool(fault, bench_on_cpu, capsys,
+                                             monkeypatch):
+    """No ``encode_error`` key and no host fallback: an encode that fails
+    or gives another container makes the tool fail."""
+    _, _, (_, enc) = bench_on_cpu
+
+    def bad(sources, stats=None):
+        if fault == "raises":
+            raise RuntimeError("emission failed")
+        return [b"bvx$"] * len(sources)
+
+    monkeypatch.setattr(enc, "encode_many", bad)
+    with pytest.raises(RuntimeError, match="emission failed" if fault ==
+                       "raises" else "differ from the native encoder"):
+        BENCH.main([])
+    assert capsys.readouterr().out.splitlines() == ["CARD LINE"]
