@@ -47,6 +47,7 @@ tests. A CUDA device without a card raises: there is no silent CPU path.
 from __future__ import annotations
 
 import ctypes as _ct
+import resource
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -212,21 +213,117 @@ _ROWS = ("lit_pos", "lmd_pos", "lit_num", "lmd_num", "lit_off", "lmd_off",
 _W = _ALIGN // 4  # payload chunk, in int32 words
 
 
-class _Clock:
-    """Wall-clock seconds per stage into ``stats`` (when given)."""
+def _thread_cpu() -> tuple[float, float]:
+    """The calling thread's CPU seconds so far (``CLOCK_THREAD_CPUTIME_ID``)
+    and its system seconds as the kernel splits them off by tick samples
+    (``getrusage(RUSAGE_THREAD)``, which may lag a tick behind)."""
+    return (time.thread_time(),
+            resource.getrusage(resource.RUSAGE_THREAD).ru_stime)
 
-    def __init__(self, stats: dict | None):
+
+class _Clock:
+    """The port's span recorder: one a ``decode_many`` / ``encode_many``
+    call, on the calling thread. A stage runs from the last ``mark`` (or
+    the recorder's start) to ``mark(key)``, which closes it under ``key``:
+
+    - its wall seconds are added to ``stats[key]``;
+    - the calling thread's CPU seconds in it, user and system, to
+      ``stats["detail_cpu"][key]``, a ``{"user": s, "sys": s}``. Their sum
+      is the thread's CPU clock: exact on a Linux host, a sample where the
+      clock steps by scheduler ticks (10 ms on the benchmark's card
+      machine), right then only as a mean over many calls. The system
+      share is the kernel's tick-sampled one, capped at the stage's CPU
+      seconds, what is over carried into the next stage (the kernel's
+      count lags). The other threads of a native stage are not counted,
+      so wall less CPU is the time the calling thread spent off a CPU:
+      waiting for the interpreter lock, a core, a page, or the join on a
+      native stage's slowest worker;
+    - under an active ``torch.profiler`` session, a recorder with a
+      ``name`` keeps one profiler range ``lzfse.<name>_many`` open while
+      it is entered (``with``) and one ``lzfse.<name>.<stage>`` from
+      ``begin(key)`` to the stage's mark, on the profiler's clock; a
+      ``prep_x`` stage's range is ``prep.x``.
+
+    With ``stats`` None no clock or CPU time is read; with no profiler
+    session no profiler function is called (one check a call). The
+    device side is ``_add_ms`` / ``_add_device_ms`` (CUDA events)."""
+
+    def __init__(self, stats: dict | None, name: str | None = None):
         self.stats = stats
-        self.t = time.perf_counter()
+        self.name = name
+        prof = torch.autograd.profiler
+        self._rf = (prof.record_function if name and getattr(
+            prof, "_is_profiler_enabled", False) else None)
+        self._call = self._stage = None   # the open profiler ranges
+        if stats is not None:
+            self.t = time.perf_counter()
+            self.cpu, self.sys = _thread_cpu()
+
+    def _range(self, label: str):
+        rng = self._rf(label)
+        rng.__enter__()
+        return rng
+
+    def _close_stage(self) -> None:
+        if self._stage is not None:
+            self._stage.__exit__(None, None, None)
+            self._stage = None
+
+    def __enter__(self) -> "_Clock":
+        if self._rf is not None:
+            self._call = self._range(f"lzfse.{self.name}_many")
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self._close_stage()
+        if self._call is not None:
+            self._call.__exit__(None, None, None)
+            self._call = None
+
+    def begin(self, key: str) -> None:
+        """Stage ``key`` starts here: opens its profiler range inside the
+        call's (closing the last stage's, if still open)."""
+        if self._call is not None:
+            self._close_stage()
+            self._stage = self._range(f"lzfse.{self.name}."
+                                      + key.replace("prep_", "prep.", 1))
 
     def mark(self, key: str) -> float:
-        """Add the seconds since the last mark to ``key``; return them."""
+        """Close the stage since the last mark under ``key``: its wall and
+        CPU seconds into ``stats``, its range closed. Returns its wall
+        seconds (0.0 without ``stats``)."""
+        self._close_stage()
+        if self.stats is None:
+            return 0.0
         t = time.perf_counter()
-        dt = t - self.t
-        if self.stats is not None:
-            self.stats[key] = self.stats.get(key, 0.0) + dt
-        self.t = t
+        cpu_t, sys_t = _thread_cpu()
+        dt, used = t - self.t, cpu_t - self.cpu
+        sys_ = min(max(sys_t - self.sys, 0.0), used)
+        self.stats[key] = self.stats.get(key, 0.0) + dt
+        cpu = self.stats.setdefault("detail_cpu", {}).setdefault(
+            key, {"user": 0.0, "sys": 0.0})
+        cpu["user"] += used - sys_
+        cpu["sys"] += sys_
+        self.t, self.cpu = t, cpu_t
+        self.sys += sys_
         return dt
+
+    def fold(self, parent: str) -> None:
+        """Sum the stages ``<parent>_*`` into ``parent``, wall and CPU
+        alike, each split kept under ``detail_<parent>``."""
+        if self.stats is None:
+            return
+        st = self.stats
+        det = {k: st.pop(k) for k in list(st) if k.startswith(parent + "_")}
+        st[parent] = st.get(parent, 0.0) + sum(det.values())
+        st["detail_" + parent] = det
+        cpu = st.setdefault("detail_cpu", {})
+        det = {k: cpu.pop(k) for k in list(cpu) if k.startswith(parent + "_")}
+        tot = cpu.setdefault(parent, {"user": 0.0, "sys": 0.0})
+        for d in det.values():
+            tot["user"] += d["user"]
+            tot["sys"] += d["sys"]
+        cpu["detail_" + parent] = det
 
 
 def host_buffer(old: torch.Tensor | None, n_words: int,
@@ -448,6 +545,7 @@ class TorchDecoder:
     def _front(self, sources: list[bytes], stats: dict | None, clock: _Clock):
         """Parse, prep and upload. Returns (results, frame); results holds
         spec-layer decodes of containers the walk rejected."""
+        clock.begin("parse")
         results: list = [None] * len(sources)
         desc, w16, parts, cpo, cont_nraw, cont_ok = \
             self._native.walk_batch(sources)
@@ -460,10 +558,12 @@ class TorchDecoder:
         clock.mark("parse")
         batch = self._prep(sources, desc, w16, clock) if len(desc) else None
         if batch is None:
+            clock.begin("prep")
             clock.mark("prep")
         return results, (batch, parts, cpo, cont_nraw, cont_ok)
 
     def _prep(self, sources, desc, w16, clock: _Clock) -> _Batch:
+        clock.begin("prep_tables")
         nb = len(desc)
         n_sh = self._mesh.size
         S = -(-nb // n_sh)   # slots a shard
@@ -539,11 +639,13 @@ class TorchDecoder:
                 u3s[k][:] = u3[k * S:(k + 1) * S]
                 vs[k][:] = v[k * S:(k + 1) * S]
         clock.mark("prep_tables")
+        clock.begin("prep_gather")
         base = np.array([at["cat"][0] for at in regions], np.int64)[shard]
         self._native.gather_payloads(
             sources, desc, (base[:nb] + start[:nb]) * 4,
             (base[nb:] + start[nb:]) * 4, host.view(np.uint8))
         clock.mark("prep_gather")
+        clock.begin("prep_small")
         scatter(views("lit_states", (S, 4)), sl_n, desc[:, 9:13])
         scatter(views("lmd_states", (S, 3)), sm_n, desc[:, 13:16]
                 + (0, C.L_STATES, C.L_STATES + C.M_STATES))
@@ -564,6 +666,7 @@ class TorchDecoder:
                                                          dtype=np.int64))):
             scatter([r[_ROWS.index(key)] for r in rows], slots, values)
         clock.mark("prep_small")
+        clock.begin("prep_upload")
 
         lit, lmd, upload = [], [], []
         for k, (dev, at) in enumerate(zip(self._mesh.devices, regions)):
@@ -641,6 +744,7 @@ class TorchDecoder:
 
     def _back(self, sources, results, frame, stats, clock: _Clock):
         """Device stage, stream checks, flatten and rebuild."""
+        clock.begin("device")
         batch, parts, cpo, cont_nraw, cont_ok = frame
         if batch is not None:
             lit_arr, lm_arr, d_arr, lit_fs, lit_fp, lmd_fs, lmd_fp = \
@@ -654,7 +758,7 @@ class TorchDecoder:
             lm_arr = np.zeros(1, np.int32)
             d_arr = np.zeros(1, np.int32)
         clock.mark("device")
-
+        clock.begin("flatten")
         keep_parts: list[np.ndarray] = []
         cont_ids: list[int] = []
         out_offs = [0]
@@ -688,6 +792,7 @@ class TorchDecoder:
         out_ptrs = np.fromiter((_bytes_addr(b) for b in out_bytes), np.int64,
                                len(out_bytes))
         clock.mark("flatten")
+        clock.begin("rebuild")
         status = self._native.flatten_rebuild(
             lm_arr.reshape(-1), d_arr.reshape(-1), lit_arr.reshape(-1),
             parts_np, cont_off_np, out_offs_np, np.zeros((1, 3), np.int32),
@@ -763,6 +868,7 @@ class TorchDecoder:
             ev[0].record()
         flat, plan, consumed, out_off = self._flat_args(dense, conts, n_raw)
         clock.mark("flatten")
+        clock.begin("rebuild")
         if cuda:
             ev[1].record()
         out, ok = CR.lz_rebuild(**flat)
@@ -798,15 +904,18 @@ class TorchDecoder:
                             ("download_ms", ev[2], ev[3]),
                             ("out_download_ms", ev[3], ev[4])))
             clock.mark("rebuild")
+            clock.begin("out_copy")
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(8)
             outs = copy_segments(self._out_pin.data_ptr(), spans, self._pool)
         else:
             outs = [out[a:b].numpy().tobytes() for a, b in spans]
             clock.mark("rebuild")
+            clock.begin("out_copy")
         for k, res in zip(keep, outs):
             results[ids[k]] = res
         clock.mark("out_copy")
+        clock.begin("rebuild")
         for k in np.flatnonzero(~good):
             results[ids[k]] = _spec(sources, ids[k], stats)
         clock.mark("rebuild")
@@ -815,9 +924,11 @@ class TorchDecoder:
     def _back_device(self, sources, results, frame, stats, clock: _Clock):
         """Device stage, then the flatten and the LZ rebuild on the device:
         the kernels' outputs never come back to the host."""
+        clock.begin("device")
         batch, parts, cpo, cont_nraw, cont_ok = frame
         dense, states, ev = self._dense(batch)
         clock.mark("device")
+        clock.begin("flatten")
         ids, conts = [], []
         for ci in np.flatnonzero(cont_ok).tolist():
             try:
@@ -841,10 +952,12 @@ class TorchDecoder:
         torch ops on the device (``ops/table_build``, ``ops/fse_decode``),
         then the native or the device rebuild: the JAX decoder's portable
         path (``decode_many`` with ``use_pallas=False``)."""
+        clock.begin("parse")
         fse_blocks: list[_FseBlockDesc] = []
         parsed = [_parse_container(s, i, fse_blocks)
                   for i, s in enumerate(sources)]
         clock.mark("parse")
+        clock.begin("prep")
         dev = self.device
         nb = len(fse_blocks)
         lit_num = np.array([b.block.literal.num for b in fse_blocks], np.int64)
@@ -890,6 +1003,7 @@ class TorchDecoder:
             lit_fs, lmd_fs = t(lit_states), t(lmd_states)
             lit_fp = lmd_fp = t(pos[:, 0])
         clock.mark("prep")
+        clock.begin("device")
         results: list = [None] * len(sources)
         if not self.use_native_rebuild:
             dense = ((lmds[:, :, 0] | (lmds[:, :, 1] << 16)).reshape(-1),
@@ -897,6 +1011,7 @@ class TorchDecoder:
                      (np.arange(nb) * n_m, lmd_num),
                      (np.arange(nb) * n_l * 4, lit_num))
             clock.mark("device")
+            clock.begin("flatten")
             return self._rebuild_on_device(
                 sources, results, list(range(len(sources))),
                 [pc.parts for pc in parsed], [pc.n_raw for pc in parsed],
@@ -908,6 +1023,7 @@ class TorchDecoder:
         fse_ok = _stream_ok(lit_fs.cpu().numpy(), lit_fp.cpu().numpy(),
                             lmd_fs.cpu().numpy(), lmd_fp.cpu().numpy())
         clock.mark("device")
+        clock.begin("flatten")
         part_rows, cont_ids, out_offs = [], [], [0]
         cont_off = [0]
         h_rows, h_lits = [], []
@@ -938,6 +1054,7 @@ class TorchDecoder:
         out_ptrs = np.fromiter((_bytes_addr(b) for b in out_bytes), np.int64,
                                len(out_bytes))
         clock.mark("flatten")
+        clock.begin("rebuild")
         status = self._native.flatten_rebuild(
             (lmd_arr[:, :, 0] | (lmd_arr[:, :, 1] << 16)).reshape(max(nb, 1),
                                                                  -1),
@@ -962,26 +1079,30 @@ class TorchDecoder:
         """Decode a batch of containers, block-parallel across all of them.
 
         ``stats``, when given, receives wall-clock seconds per stage
-        (``parse``, ``prep``, ``device``, ``flatten``, ``rebuild``), the
-        prep sub-stages under ``detail_prep`` (kernel path), on a card the
-        CUDA-event milliseconds under ``detail_device`` (the upload, the
-        kernels and the download, with a mesh each the longest over its
-        devices, and each shard's kernels under ``shard_kernels_ms``; with
-        the device rebuild also the flatten, the rebuild and the output
-        bytes' download, ``out_download_ms``), and the count of spec-layer
-        ``fallbacks``. Not re-entrant: the
-        staging buffers belong to the decoder."""
-        clock = _Clock(stats)
-        if not self.use_kernels:
-            return self._decode_scan(sources, stats, clock)
-        results, frame = self._front(sources, stats, clock)
-        if stats is not None:
-            det = {k: stats.pop(k) for k in list(stats)
-                   if k.startswith("prep_")}
-            stats["prep"] = stats.get("prep", 0.0) + sum(det.values())
-            stats["detail_prep"] = det
-        back = self._back if self.use_native_rebuild else self._back_device
-        return back(sources, results, frame, stats, clock)
+        (``parse``, ``prep``, ``device``, ``flatten``, ``rebuild``; with
+        the device rebuild also ``out_copy``), the prep sub-stages under
+        ``detail_prep`` (kernel path), the calling thread's CPU seconds in
+        each of those stages under ``detail_cpu`` (``{"user": s, "sys":
+        s}`` under the same keys, the prep split under its
+        ``detail_prep``; see ``_Clock``), on a card the CUDA-event
+        milliseconds under ``detail_device`` (the upload, the kernels and
+        the download, with a mesh each the longest over its devices, and
+        each shard's kernels under ``shard_kernels_ms``; with the device
+        rebuild also the flatten, the rebuild and the output bytes'
+        download, ``out_download_ms``), and the count of spec-layer
+        ``fallbacks``. Under an active ``torch.profiler`` session the call
+        is a ``lzfse.decode_many`` range with a ``lzfse.decode.<stage>``
+        range a stage inside it (``lzfse.decode.prep.tables`` for
+        ``prep_tables``). Not re-entrant: the staging buffers belong to
+        the decoder."""
+        with _Clock(stats, "decode") as clock:
+            if not self.use_kernels:
+                return self._decode_scan(sources, stats, clock)
+            results, frame = self._front(sources, stats, clock)
+            clock.fold("prep")
+            back = self._back if self.use_native_rebuild else \
+                self._back_device
+            return back(sources, results, frame, stats, clock)
 
     def decode_bytes(self, src: bytes) -> bytes:
         """Decode one container: ``decode_many([src])[0]``."""

@@ -420,6 +420,7 @@ class TorchEncoder:
             chunks: list = []
             try:
                 for grp in groups:
+                    clock.begin("frontend")
                     s0 = int(counter[0])
                     nb_of.update(zip(grp, _map(
                         lambda i: self._native.frontend_stage(
@@ -513,9 +514,11 @@ class TorchEncoder:
         waiting for the device. Returns the chunk's bytes up and down, the
         download rows and, on a card, its events (upload start, upload end,
         kernels end, downloads end)."""
+        clock.begin("emit_prep")
         host = self._download_rows(pool.slots)
         dev = self._upload(pool, s0, s1)
         clock.mark("emit_prep")
+        clock.begin("emit_dispatch")
         lit, lmd = self._kwargs(dev)
         outs = (*K.encode_literals(**lit), *K.encode_lmds(**lmd))
         cuda = self.device.type == "cuda"
@@ -538,6 +541,7 @@ class TorchEncoder:
         kernels, and downloads to ``stats``. Returns host arrays (glo,
         gmeta, literal states, mlo, mmeta, L/M/D states) of the slots
         [0, nb)."""
+        clock.begin("emit_kernels")
         if chunks[-1]["events"]:
             chunks[-1]["events"][-1].synchronize()
         if stats is not None:
@@ -576,9 +580,18 @@ class TorchEncoder:
         ``device_emission=False`` the stages are ``small``, ``win_prep``,
         ``matchfind``, ``arbitrate``, ``merge`` and ``select_emit`` (the
         host's selection and emission), with ``detail_match``; there is no
-        ``detail_device``, ``upload_bytes`` or ``download_bytes``.
+        ``detail_device``, ``upload_bytes`` or ``download_bytes``. The
+        calling thread's CPU seconds in each stage go under ``detail_cpu``
+        and, under an active ``torch.profiler`` session, the call is a
+        ``lzfse.encode_many`` range with a ``lzfse.encode.<stage>`` range a
+        stage inside it, as ``TorchDecoder.decode_many`` records them.
         Not re-entrant: the staging buffers belong to the encoder."""
-        clock = _Clock(stats)
+        with _Clock(stats, "encode") as clock:
+            return self._encode_many(sources, stats, clock)
+
+    def _encode_many(self, sources, stats, clock: _Clock) -> list[bytes]:
+        """``encode_many``'s work, its stages closed on ``clock``."""
+        clock.begin("small")
         results: list = [None] * len(sources)
         big: list[int] = []
         for i, s in enumerate(sources):
@@ -601,6 +614,7 @@ class TorchEncoder:
         if stats is not None:
             stats["pipeline_chunks"] = len(chunks)
 
+        clock.begin("pack")
         cap = self._native.PACK_SLOT_CAP
         if self._arena is None or self._arena.size < nb * cap:
             self._arena = np.empty(nb * cap, np.uint8)
@@ -686,6 +700,7 @@ class TorchEncoder:
         native selection and one emission pass over every block; with
         ``device_emission=False``, ``native.select_emit_fse`` per source on
         host threads instead."""
+        clock.begin("win_prep")
         wins = self.windows(sources)
         fulls = {i: np.frombuffer(sources[i], dtype=np.uint8) for i in big}
         clock.mark("win_prep")
@@ -693,9 +708,11 @@ class TorchEncoder:
         parts: dict = {i: [] for i in big}
         for k, w in enumerate(wins):
             parts[w[0]].append(win_out[k])
+        clock.begin("merge")
         streams = {i: _merge(fulls[i], parts[i]) for i in big}
         clock.mark("merge")
         if not self.device_emission:
+            clock.begin("select_emit")
             bodies = _map(lambda i: self._native.select_emit_fse(
                 sources[i], _stream_rows(streams[i])), big)
             for i, body in zip(big, bodies):
@@ -703,6 +720,7 @@ class TorchEncoder:
             clock.mark("select_emit")
             self.last_emission = "host"
             return results
+        clock.begin("select")
         per_src = {i: self._select_blocks(sources[i], streams[i]) for i in big}
         clock.mark("select")
         flat: list = []
@@ -711,6 +729,7 @@ class TorchEncoder:
             spans[i] = (len(flat), len(per_src[i]))
             flat.extend(per_src[i])
         bodies = self._emit_best(flat, stats, clock)
+        clock.begin("pack")
         for i in big:
             off, cnt = spans[i]
             results[i] = b"".join(bodies[off:off + cnt]) + EOS
@@ -799,6 +818,7 @@ class TorchEncoder:
         cuda = self.device.type == "cuda"
         out: dict = {}
         for N, idxs in _by_n(wins):
+            clock.begin("win_prep")
             B = len(idxs)
             host = {"pads": self._host("pads", (B, N), torch.uint8),
                     "n_reals": self._host("n_reals", (B,), torch.int32),
@@ -812,6 +832,7 @@ class TorchEncoder:
                 a["n_reals"][r], a["los"][r] = n, ctx
                 a["his"][r] = ctx + WINDOW_STRIDE
             prep_s = clock.mark("win_prep")
+            clock.begin("matchfind")
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
                 ev[0].record()
@@ -841,6 +862,7 @@ class TorchEncoder:
                                     for x in rows[:3])
             cands_h, lcps_h = (x.numpy() for x in rows[3:])
             find_s = clock.mark("matchfind")
+            clock.begin("arbitrate")
             for r, k in enumerate(idxs):
                 i, base, ctx, n, _ = wins[k]
                 S, K_ = int(counts_h[r, 0]), int(counts_h[r, 1])
@@ -893,11 +915,13 @@ class TorchEncoder:
         cuda = self.device.type == "cuda"
         out: dict = {}
         for N, idxs in _by_n(wins):
+            clock.begin("win_prep")
             B = len(idxs)
             n_rows = B if self.mesh is None else _round_up(B, self.mesh.size)
             host = self._window_inputs(fulls, [wins[k] for k in idxs], N, vn,
                                        n_rows)
             prep_s = clock.mark("win_prep")
+            clock.begin("matchfind")
             if cuda:
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
                 ev[0].record()
@@ -927,6 +951,7 @@ class TorchEncoder:
             offs, matched, m_len, sat = (x.numpy() for x in down)
             del rows
             find_s = clock.mark("matchfind")
+            clock.begin("arbitrate")
             orders = host["orders"].numpy()
             for r, k in enumerate(idxs):
                 i, base, ctx, n, _ = wins[k]
@@ -993,6 +1018,7 @@ class TorchEncoder:
                      clock: _Clock) -> list:
         """One body per block: weights and rows staged per block, both
         kernels over all blocks at once, groups packed per block."""
+        clock.begin("emit_prep")
         nb = len(blocks)
         pool = self._staging(nb)
         a = pool.a
