@@ -49,8 +49,10 @@ from __future__ import annotations
 import ctypes as _ct
 import resource
 import time
+from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
+from itertools import compress, repeat
 
 import numpy as np
 import torch
@@ -203,6 +205,28 @@ def _new_bytes(n: int) -> bytes:
 
 def _bytes_addr(b: bytes) -> int:
     return _PyBytes_AsString(b) or 0
+
+
+def _data_offset() -> int:
+    """How far a bytes object's buffer lies from the object (``id``)."""
+    probe = _new_bytes(16)
+    return _bytes_addr(probe) - id(probe)
+
+
+_BYTES_DATA = _data_offset()
+
+
+def _new_outputs(sizes: np.ndarray) -> tuple[list[bytes], np.ndarray]:
+    """Fresh uninitialized bytes objects of the given sizes and their
+    buffers' addresses, in one pass run by ``map`` (no interpreter step a
+    container)."""
+    out = list(map(_PyBytes_New, repeat(None, len(sizes)), sizes.tolist()))
+    return out, np.fromiter(map(id, out), np.int64, len(out)) + _BYTES_DATA
+
+
+def _put(results: list, at: np.ndarray, values) -> None:
+    """``results[at[k]] = values[k]`` for every k, the loop run by ``map``."""
+    deque(map(results.__setitem__, at.tolist(), values), maxlen=0)
 
 
 # --- the port's decoder ------------------------------------------------------
@@ -370,6 +394,38 @@ def _stream_ok(lit_fs, lit_fp, lmd_fs, lmd_fp) -> np.ndarray:
     lmd_ok = ((lmd_fs[:, 0] == 0) & (lmd_fs[:, 1] == C.L_STATES)
               & (lmd_fs[:, 2] == C.L_STATES + C.M_STATES) & (lmd_fp >= 64))
     return lit_ok & lmd_ok
+
+
+def _flatten_plan(parts, cpo, cont_nraw, cont_ok, fse_ok, batch):
+    """The native rebuild's inputs for a walked batch, as array operations
+    over its parts (``native.walk_batch``'s ``parts``, ``cont_part_off``,
+    ``cont_nraw`` and ``cont_ok``) and each FSE block's stream check
+    ``fse_ok``. Returns (kept, failed, parts, cont_off, out_offs): the
+    containers the walk accepted whose FSE blocks all passed, in order;
+    those with a block that failed, in order (the spec layer decodes them);
+    the kept containers' parts, each FSE part pointed at its block's dense
+    outputs in ``batch`` (``P[1]`` the L/M/D word offset, ``P[4]`` the
+    literal byte offset); and the kept containers' part and output
+    offsets."""
+    n = len(cont_ok)
+    owner = np.repeat(np.arange(n), np.diff(cpo))
+    fse = parts[:, 0] == 0
+    bad = np.bincount(owner[fse][~fse_ok[parts[fse, 1]]], minlength=n) > 0
+    ok = cont_ok != 0
+    keep = ok & ~bad
+    kept = np.flatnonzero(keep)
+    parts_np = parts[keep[owner]]
+    if len(parts_np):
+        k0 = parts_np[:, 0] == 0
+        if k0.any():
+            g = parts_np[k0, 1]
+            parts_np[k0, 1] = batch.off_m[batch.sm_n[g]]
+            parts_np[k0, 4] = batch.off_l[batch.sl_n[g]] * 4
+    cont_off = np.zeros(len(kept) + 1, np.int32)
+    np.cumsum(np.diff(cpo)[kept], out=cont_off[1:])
+    out_offs = np.zeros(len(kept) + 1, np.int64)
+    np.cumsum(cont_nraw[kept], out=out_offs[1:])
+    return kept, np.flatnonzero(ok & bad), parts_np, cont_off, out_offs
 
 
 def _spec(sources, ci: int, stats: dict | None) -> bytes:
@@ -547,8 +603,9 @@ class TorchDecoder:
         spec-layer decodes of containers the walk rejected."""
         clock.begin("parse")
         results: list = [None] * len(sources)
+        ptrs = self._native.src_ptrs(sources)
         desc, w16, parts, cpo, cont_nraw, cont_ok = \
-            self._native.walk_batch(sources)
+            self._native.walk_batch(sources, ptrs)
         for ci in np.flatnonzero(cont_ok == 0):
             ci = int(ci)
             # exact error semantics: the Python parse raises the precise
@@ -556,13 +613,14 @@ class TorchDecoder:
             _parse_container(sources[ci], ci, [])
             results[ci] = _spec(sources, ci, stats)
         clock.mark("parse")
-        batch = self._prep(sources, desc, w16, clock) if len(desc) else None
+        batch = (self._prep(sources, ptrs, desc, w16, clock) if len(desc)
+                 else None)
         if batch is None:
             clock.begin("prep")
             clock.mark("prep")
-        return results, (batch, parts, cpo, cont_nraw, cont_ok)
+        return results, (batch, parts, cpo, cont_nraw, cont_ok, ptrs)
 
-    def _prep(self, sources, desc, w16, clock: _Clock) -> _Batch:
+    def _prep(self, sources, ptrs, desc, w16, clock: _Clock) -> _Batch:
         clock.begin("prep_tables")
         nb = len(desc)
         n_sh = self._mesh.size
@@ -643,7 +701,7 @@ class TorchDecoder:
         base = np.array([at["cat"][0] for at in regions], np.int64)[shard]
         self._native.gather_payloads(
             sources, desc, (base[:nb] + start[:nb]) * 4,
-            (base[nb:] + start[nb:]) * 4, host.view(np.uint8))
+            (base[nb:] + start[nb:]) * 4, host.view(np.uint8), ptrs)
         clock.mark("prep_gather")
         clock.begin("prep_small")
         scatter(views("lit_states", (S, 4)), sl_n, desc[:, 9:13])
@@ -745,7 +803,7 @@ class TorchDecoder:
     def _back(self, sources, results, frame, stats, clock: _Clock):
         """Device stage, stream checks, flatten and rebuild."""
         clock.begin("device")
-        batch, parts, cpo, cont_nraw, cont_ok = frame
+        batch, parts, cpo, cont_nraw, cont_ok, ptrs = frame
         if batch is not None:
             lit_arr, lm_arr, d_arr, lit_fs, lit_fp, lmd_fs, lmd_fp = \
                 self._device(batch, stats)
@@ -759,50 +817,24 @@ class TorchDecoder:
             d_arr = np.zeros(1, np.int32)
         clock.mark("device")
         clock.begin("flatten")
-        keep_parts: list[np.ndarray] = []
-        cont_ids: list[int] = []
-        out_offs = [0]
-        for ci in np.flatnonzero(cont_ok):
-            ci = int(ci)
-            sub = parts[cpo[ci]:cpo[ci + 1]]
-            k0 = sub[sub[:, 0] == 0, 1]
-            if len(k0) and not fse_ok[k0].all():
-                results[ci] = _spec(sources, ci, stats)
-                continue
-            keep_parts.append(sub)
-            cont_ids.append(ci)
-            out_offs.append(out_offs[-1] + int(cont_nraw[ci]))
-        parts_np = (np.ascontiguousarray(np.concatenate(keep_parts))
-                    if keep_parts else np.zeros((0, 6), np.int32))
-        # point each FSE part at its block's dense outputs: P[1] = lm/d
-        # word offset, P[4] = literal byte offset
-        if len(parts_np):
-            k0 = parts_np[:, 0] == 0
-            if k0.any():
-                g = parts_np[k0, 1]
-                parts_np[k0, 1] = batch.off_m[batch.sm_n[g]]
-                parts_np[k0, 4] = batch.off_l[batch.sl_n[g]] * 4
-        cont_off_np = np.zeros(len(cont_ids) + 1, np.int32)
-        if keep_parts:
-            cont_off_np[1:] = np.cumsum([len(p) for p in keep_parts])
-        out_offs_np = np.asarray(out_offs, np.int64)
+        kept, failed, parts_np, cont_off_np, out_offs_np = _flatten_plan(
+            parts, cpo, cont_nraw, cont_ok, fse_ok, batch)
+        for ci in failed.tolist():
+            results[ci] = _spec(sources, ci, stats)
         # rebuild straight into each container's final bytes object
-        out_bytes = [_new_bytes(out_offs[k + 1] - out_offs[k])
-                     for k in range(len(cont_ids))]
-        out_ptrs = np.fromiter((_bytes_addr(b) for b in out_bytes), np.int64,
-                               len(out_bytes))
+        n_raw = np.diff(out_offs_np)
+        out_bytes, out_ptrs = _new_outputs(n_raw)
         clock.mark("flatten")
         clock.begin("rebuild")
         status = self._native.flatten_rebuild(
             lm_arr.reshape(-1), d_arr.reshape(-1), lit_arr.reshape(-1),
             parts_np, cont_off_np, out_offs_np, np.zeros((1, 3), np.int32),
-            np.zeros(1, np.uint8), np.zeros(1, np.uint8), sources=sources,
-            out_ptrs=out_ptrs)
-        for k, ci in enumerate(cont_ids):
-            if status[k] == int(cont_nraw[ci]):
-                results[ci] = out_bytes[k]
-            else:
-                results[ci] = _spec(sources, ci, stats)
+            np.zeros(1, np.uint8), np.zeros(1, np.uint8), out_ptrs=out_ptrs,
+            ptrs=ptrs)
+        good = status == n_raw
+        _put(results, kept[good], compress(out_bytes, good.tolist()))
+        for ci in kept[~good].tolist():
+            results[ci] = _spec(sources, ci, stats)
         clock.mark("rebuild")
         return results
 
@@ -925,7 +957,7 @@ class TorchDecoder:
         """Device stage, then the flatten and the LZ rebuild on the device:
         the kernels' outputs never come back to the host."""
         clock.begin("device")
-        batch, parts, cpo, cont_nraw, cont_ok = frame
+        batch, parts, cpo, cont_nraw, cont_ok, _ = frame
         dense, states, ev = self._dense(batch)
         clock.mark("device")
         clock.begin("flatten")
@@ -1049,10 +1081,7 @@ class TorchDecoder:
             cont_ids.append(ci)
             cont_off.append(len(part_rows))
             out_offs.append(out_offs[-1] + pc.n_raw)
-        out_bytes = [_new_bytes(out_offs[k + 1] - out_offs[k])
-                     for k in range(len(cont_ids))]
-        out_ptrs = np.fromiter((_bytes_addr(b) for b in out_bytes), np.int64,
-                               len(out_bytes))
+        out_bytes, out_ptrs = _new_outputs(np.diff(out_offs))
         clock.mark("flatten")
         clock.begin("rebuild")
         status = self._native.flatten_rebuild(
@@ -1127,7 +1156,7 @@ class TorchDecoder:
         on this decoder's device with the blocks' offsets and counts, each
         container's flatten parts, and their sizes (``_flat_args``'s
         arguments)."""
-        _, (batch, parts, cpo, cont_nraw, cont_ok) = self._front(
+        _, (batch, parts, cpo, cont_nraw, cont_ok, _) = self._front(
             sources, None, _Clock(None))
         dense, _, _ = self._dense(batch)
         ids = np.flatnonzero(cont_ok).tolist()

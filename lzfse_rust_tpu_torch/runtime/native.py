@@ -259,13 +259,15 @@ def build_tables_into(weights, v_row, u_row) -> None:
                            u_row.ctypes.data)
 
 
-def _src_ptrs(sources):
-    """(char** array, keepalive) for a list of bytes objects."""
-    arr = (ctypes.c_char_p * len(sources))(*sources)
-    return arr
+def src_ptrs(sources):
+    """The char* array of a list of bytes objects (it keeps them alive).
+    A caller that passes one batch to several of ``walk_batch``,
+    ``gather_payloads`` and ``flatten_rebuild`` builds it once and gives it
+    to each as ``ptrs``."""
+    return (ctypes.c_char_p * len(sources))(*sources)
 
 
-def walk_batch(sources):
+def walk_batch(sources, ptrs=None):
     """Native batch container walk (the TpuDecoder parse stage).
 
     Returns (desc (n_fse, 20) int32, weights (n_fse, 360) uint16,
@@ -276,8 +278,9 @@ def walk_batch(sources):
     in src, 3 = RAW body in src (see tpulzfse.cpp tl_walk_batch)."""
     import numpy as np
     n = len(sources)
-    ptrs = _src_ptrs(sources)
-    lens = np.array([len(s) for s in sources], np.int64)
+    if ptrs is None:
+        ptrs = src_ptrs(sources)
+    lens = np.fromiter(map(len, sources), np.int64, n)
     cap_fse, cap_parts = 512, 1024
     while True:
         desc = np.empty((cap_fse, 20), np.int32)
@@ -301,10 +304,11 @@ def walk_batch(sources):
         cap_parts *= 4
 
 
-def gather_payloads(sources, desc, dst_l, dst_m, stage) -> None:
+def gather_payloads(sources, desc, dst_l, dst_m, stage, ptrs=None) -> None:
     """Copy every FSE block's payloads from the source containers into the
     compact 512B-chunk staging buffer (replaces join+copy)."""
-    ptrs = _src_ptrs(sources)
+    if ptrs is None:
+        ptrs = src_ptrs(sources)
     _lib().tl_gather_payloads(ctypes.addressof(ptrs), desc.ctypes.data,
                               desc.shape[0], dst_l.ctypes.data,
                               dst_m.ctypes.data, stage.ctypes.data)
@@ -318,7 +322,7 @@ def alloc_reuse() -> None:
 
 def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
                     out_offs, host_rows, host_lits, out, sources=(),
-                    out_ptrs=None):
+                    out_ptrs=None, ptrs=None):
     """Flatten + LZ-rebuild a batch of containers in one threaded call.
 
     lm_rows/d_rows: (nb, LMDS) int32 packed device rows (l | m << 16 and
@@ -331,7 +335,8 @@ def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
     when kind 2/3 parts are present); out_ptrs: optional (n_conts,)
     int64 array of per-container output base addresses — when given, each
     container rebuilds straight into its own buffer (the caller's final
-    bytes objects) and `out` is ignored except as a dummy.
+    bytes objects) and `out` is ignored except as a dummy; ptrs: `sources`'
+    `src_ptrs` array, when the caller has built it.
     Returns (n_conts,) int64 per-container bytes-written-or-negative-error.
     """
     import numpy as np
@@ -342,7 +347,8 @@ def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
     lit_rows = np.ascontiguousarray(lit_rows, dtype=np.uint8)
     n_conts = len(out_offs) - 1
     status = np.empty(n_conts, np.int64)
-    ptrs = _src_ptrs(list(sources) or [b""])
+    if ptrs is None:
+        ptrs = src_ptrs(list(sources) or [b""])
     # 2-D arrays: part row indices scale by the row stride. 1-D (dense
     # compacted) arrays: stride 1, so part indices are absolute word/byte
     # offsets.
