@@ -67,6 +67,7 @@ from ..ops import lz_rebuild as LR
 from ..ops import table_build as TB
 from ..parallel.mesh import Mesh, launch_decode
 from ..runtime.build import native_runtime
+from ..runtime.native import BYTES_DATA
 from ..spec import container as spec_container
 from ..spec import fse as F
 from ..spec import vn as V
@@ -207,21 +208,26 @@ def _bytes_addr(b: bytes) -> int:
     return _PyBytes_AsString(b) or 0
 
 
-def _data_offset() -> int:
-    """How far a bytes object's buffer lies from the object (``id``)."""
-    probe = _new_bytes(16)
-    return _bytes_addr(probe) - id(probe)
-
-
-_BYTES_DATA = _data_offset()
+# outputs below this size are allocated zero-filled by ``bytes(n)``, the rest
+# uninitialized by a ctypes call into ``PyBytes_FromStringAndSize``. On an
+# H100's host (8 cores) an object took 3.9 us against 6.7 at 4 KiB and 13.2
+# against 9.4 at 8 KiB; one call's outputs 2.2 ms split against 11.4 all by
+# ctypes (16,384 values of 1 B-13.6 KB) and 18.4 against 64.4 all by
+# ``bytes(n)`` (576 outputs of 200 B-702 KB)
+_ZERO_FILL_BELOW = 4096
 
 
 def _new_outputs(sizes: np.ndarray) -> tuple[list[bytes], np.ndarray]:
-    """Fresh uninitialized bytes objects of the given sizes and their
-    buffers' addresses, in one pass run by ``map`` (no interpreter step a
-    container)."""
-    out = list(map(_PyBytes_New, repeat(None, len(sizes)), sizes.tolist()))
-    return out, np.fromiter(map(id, out), np.int64, len(out)) + _BYTES_DATA
+    """Fresh bytes objects of the given sizes, uninitialized from
+    ``_ZERO_FILL_BELOW`` bytes up, and their buffers' addresses, in passes
+    run by ``map`` (no interpreter step a container): every small one
+    (the large ones' places hold ``b""`` meanwhile), then the large ones."""
+    small = sizes < _ZERO_FILL_BELOW
+    big = np.flatnonzero(~small)
+    out = list(map(bytes, np.where(small, sizes, 0).tolist()))
+    _put(out, big, map(_PyBytes_New, repeat(None, len(big)),
+                       sizes[big].tolist()))
+    return out, np.fromiter(map(id, out), np.int64, len(out)) + BYTES_DATA
 
 
 def _put(results: list, at: np.ndarray, values) -> None:
@@ -428,6 +434,34 @@ def _flatten_plan(parts, cpo, cont_nraw, cont_ok, fse_ok, batch):
     return kept, np.flatnonzero(ok & bad), parts_np, cont_off, out_offs
 
 
+# the walk's part kinds whose output the card takes part in, by rebuild: the
+# native rebuild decodes LZVN (2) and RAW (3) parts on host threads, the
+# device rebuild writes every part's output on the card
+_CARD_KINDS = {True: (0,), False: (0, 2, 3)}
+
+
+def _part_counts(parts, cpo, cont_nraw, cont_ok, card_kinds) -> dict:
+    """What a walked batch holds, as array operations over its parts (the
+    walk gives a rejected container no part): the containers, the accepted
+    ones with no part of a kind in ``card_kinds`` (``host_only``: the path
+    decodes them on the host alone) and their raw bytes, the raw bytes of
+    every accepted container, and the parts of each kind."""
+    n = len(cont_ok)
+    kind = parts[:, 0]
+    card = np.flatnonzero(np.isin(kind, card_kinds))
+    # each such part's container: the last whose first part is at or
+    # before it (a container without parts shares its first part's index)
+    owner = np.searchsorted(cpo, card, side="right") - 1
+    ok = cont_ok != 0
+    host_only = ok & (np.bincount(owner, minlength=n) == 0)
+    return {"containers": n, "host_only": int(np.count_nonzero(host_only)),
+            "host_only_bytes": int(cont_nraw[host_only].sum()),
+            "raw_bytes": int(cont_nraw[ok].sum()),
+            "fse_blocks": int(np.count_nonzero(kind == 0)),
+            "vn_blocks": int(np.count_nonzero(kind == 2)),
+            "raw_blocks": int(np.count_nonzero(kind == 3))}
+
+
 def _spec(sources, ci: int, stats: dict | None) -> bytes:
     """Container ci through the spec layer (its exact bytes or exception),
     counted in ``stats["fallbacks"]``."""
@@ -606,6 +640,12 @@ class TorchDecoder:
         ptrs = self._native.src_ptrs(sources)
         desc, w16, parts, cpo, cont_nraw, cont_ok = \
             self._native.walk_batch(sources, ptrs)
+        if stats is not None:
+            det = stats.setdefault("detail_parts", {})
+            counts = _part_counts(parts, cpo, cont_nraw, cont_ok,
+                                  _CARD_KINDS[self.use_native_rebuild])
+            for k, v in counts.items():
+                det[k] = det.get(k, 0) + v
         for ci in np.flatnonzero(cont_ok == 0):
             ci = int(ci)
             # exact error semantics: the Python parse raises the precise
@@ -832,7 +872,10 @@ class TorchDecoder:
             np.zeros(1, np.uint8), np.zeros(1, np.uint8), out_ptrs=out_ptrs,
             ptrs=ptrs)
         good = status == n_raw
-        _put(results, kept[good], compress(out_bytes, good.tolist()))
+        if len(kept) == len(results) and good.all():
+            results[:] = out_bytes   # every container, in order
+        else:
+            _put(results, kept[good], compress(out_bytes, good.tolist()))
         for ci in kept[~good].tolist():
             results[ci] = _spec(sources, ci, stats)
         clock.mark("rebuild")
@@ -1119,11 +1162,21 @@ class TorchDecoder:
         each shard's kernels under ``shard_kernels_ms``; with the device
         rebuild also the flatten, the rebuild and the output bytes'
         download, ``out_download_ms``), and the count of spec-layer
-        ``fallbacks``. Under an active ``torch.profiler`` session the call
-        is a ``lzfse.decode_many`` range with a ``lzfse.decode.<stage>``
-        range a stage inside it (``lzfse.decode.prep.tables`` for
-        ``prep_tables``). Not re-entrant: the staging buffers belong to
-        the decoder."""
+        ``fallbacks``. On the kernel path (either rebuild) ``detail_parts``
+        counts what the container walk found: ``containers`` (the sources),
+        ``host_only`` (accepted containers whose output the device takes
+        no part in on this call's path: with the native rebuild those with
+        no FSE block, whose LZVN and RAW blocks are decoded on host
+        threads; with the device rebuild only those with no block at all),
+        their raw bytes ``host_only_bytes``, the raw bytes of every accepted container
+        ``raw_bytes``, and the blocks of each kind, ``fse_blocks``,
+        ``vn_blocks`` and ``raw_blocks``; the scan path
+        (``use_kernels=False``) leaves it out. Every count and every
+        second adds to what ``stats`` already holds. Under an active
+        ``torch.profiler`` session the call is a ``lzfse.decode_many``
+        range with a ``lzfse.decode.<stage>`` range a stage inside it
+        (``lzfse.decode.prep.tables`` for ``prep_tables``). Not
+        re-entrant: the staging buffers belong to the decoder."""
         with _Clock(stats, "decode") as clock:
             if not self.use_kernels:
                 return self._decode_scan(sources, stats, clock)

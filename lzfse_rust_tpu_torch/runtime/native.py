@@ -259,12 +259,31 @@ def build_tables_into(weights, v_row, u_row) -> None:
                            u_row.ctypes.data)
 
 
+def _bytes_data_offset() -> int:
+    """How far a bytes object's buffer lies from the object (``id``)."""
+    probe = b"offset probe"
+    addr = ctypes.cast(ctypes.c_char_p(probe), ctypes.c_void_p).value
+    return addr - id(probe)
+
+
+BYTES_DATA = _bytes_data_offset()
+
+
 def src_ptrs(sources):
-    """The char* array of a list of bytes objects (it keeps them alive).
-    A caller that passes one batch to several of ``walk_batch``,
-    ``gather_payloads`` and ``flatten_rebuild`` builds it once and gives it
-    to each as ``ptrs``."""
-    return (ctypes.c_char_p * len(sources))(*sources)
+    """The char* array of a list of bytes objects, made from their
+    addresses (``id`` plus ``BYTES_DATA``) in one pass, with no ctypes
+    conversion a source. It does not keep the sources alive: the caller
+    holds them while the array is in use. Raises TypeError for anything
+    that is not a bytes object. A caller that passes one batch to several
+    of ``walk_batch``, ``gather_payloads`` and ``flatten_rebuild`` builds
+    it once and gives it to each as ``ptrs``."""
+    import numpy as np
+    n = len(sources)
+    for t in set(map(type, sources)):
+        if not issubclass(t, bytes):
+            raise TypeError(f"src_ptrs takes bytes objects, not {t.__name__}")
+    addr = np.fromiter(map(id, sources), np.int64, n) + BYTES_DATA
+    return (ctypes.c_char_p * n).from_buffer(addr)
 
 
 def walk_batch(sources, ptrs=None):
