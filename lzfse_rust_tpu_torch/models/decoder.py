@@ -10,7 +10,7 @@ device is the two FSE stream-decode kernels of ``ops/cuda_decode.py``.
 
 Per call:
 
-1. parse: ``native.walk_batch``; a container the walk rejects is re-parsed
+1. parse: ``native.walk``; a container the walk rejects is re-parsed
    by ``_parse_container`` (raising the precise exception) or decoded by
    the spec layer;
 2. prep: blocks are size-sorted (warps then run similar step counts), the
@@ -52,7 +52,7 @@ import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from itertools import compress, repeat
+from itertools import compress
 
 import numpy as np
 import torch
@@ -66,8 +66,8 @@ from ..ops import fse_decode as FD
 from ..ops import lz_rebuild as LR
 from ..ops import table_build as TB
 from ..parallel.mesh import Mesh, launch_decode
+from ..runtime import native
 from ..runtime.build import native_runtime
-from ..runtime.native import BYTES_DATA
 from ..spec import container as spec_container
 from ..spec import fse as F
 from ..spec import vn as V
@@ -187,48 +187,6 @@ def _round_up(x: int, m: int) -> int:
 
 
 _ALIGN = 512  # payload alignment in the flat upload cat (128 int32 words)
-
-# Uninitialized-bytes allocation + buffer address (CPython C API via
-# ctypes): lets the native rebuild fill final `bytes` results in place.
-_PyBytes_New = _ct.pythonapi.PyBytes_FromStringAndSize
-_PyBytes_New.restype = _ct.py_object
-_PyBytes_New.argtypes = [_ct.c_char_p, _ct.c_ssize_t]
-_PyBytes_AsString = _ct.pythonapi.PyBytes_AsString
-_PyBytes_AsString.restype = _ct.c_void_p
-_PyBytes_AsString.argtypes = [_ct.py_object]
-
-
-def _new_bytes(n: int) -> bytes:
-    """A fresh UNINITIALIZED bytes object of length n (contents garbage
-    until the native rebuild fills it)."""
-    return _PyBytes_New(None, n)
-
-
-def _bytes_addr(b: bytes) -> int:
-    return _PyBytes_AsString(b) or 0
-
-
-# outputs below this size are allocated zero-filled by ``bytes(n)``, the rest
-# uninitialized by a ctypes call into ``PyBytes_FromStringAndSize``. On an
-# H100's host (8 cores) an object took 3.9 us against 6.7 at 4 KiB and 13.2
-# against 9.4 at 8 KiB; one call's outputs 2.2 ms split against 11.4 all by
-# ctypes (16,384 values of 1 B-13.6 KB) and 18.4 against 64.4 all by
-# ``bytes(n)`` (576 outputs of 200 B-702 KB)
-_ZERO_FILL_BELOW = 4096
-
-
-def _new_outputs(sizes: np.ndarray) -> tuple[list[bytes], np.ndarray]:
-    """Fresh bytes objects of the given sizes, uninitialized from
-    ``_ZERO_FILL_BELOW`` bytes up, and their buffers' addresses, in passes
-    run by ``map`` (no interpreter step a container): every small one
-    (the large ones' places hold ``b""`` meanwhile), then the large ones."""
-    small = sizes < _ZERO_FILL_BELOW
-    big = np.flatnonzero(~small)
-    out = list(map(bytes, np.where(small, sizes, 0).tolist()))
-    _put(out, big, map(_PyBytes_New, repeat(None, len(big)),
-                       sizes[big].tolist()))
-    return out, np.fromiter(map(id, out), np.int64, len(out)) + BYTES_DATA
-
 
 def _put(results: list, at: np.ndarray, values) -> None:
     """``results[at[k]] = values[k]`` for every k, the loop run by ``map``."""
@@ -532,13 +490,13 @@ _COPY_CHUNK = 1 << 20
 
 def copy_segments(base: int, spans, pool) -> list[bytes]:
     """New bytes objects holding the host memory at ``base + a`` to
-    ``base + b`` for each (a, b) of ``spans``, copied in 1 MiB pieces by the
-    threads of ``pool`` (``ctypes.memmove`` releases the GIL)."""
-    res, jobs = [], []
-    for a, b in spans:
-        r = _new_bytes(b - a)
-        res.append(r)
-        dst = _bytes_addr(r)
+    ``base + b`` for each (a, b) of ``spans``, made by one
+    ``native.new_outputs`` call and filled in 1 MiB pieces by the threads of
+    ``pool`` (``ctypes.memmove`` releases the GIL)."""
+    spans = np.array(list(spans), np.int64).reshape(-1, 2)
+    res, dsts = native.new_outputs(spans[:, 1] - spans[:, 0])
+    jobs = []
+    for (a, b), dst in zip(spans.tolist(), dsts.tolist()):
         for o in range(a, b, _COPY_CHUNK):
             jobs.append((dst + o - a, base + o, min(_COPY_CHUNK, b - o)))
     for _ in pool.map(lambda j: _ct.memmove(*j), jobs):
@@ -617,6 +575,7 @@ class TorchDecoder:
         self._out_pin: torch.Tensor | None = None  # pinned output bytes
         self._pool = None   # threads that copy output bytes out of it
         self._side = {}   # per device, the CUDA stream of the L/M/D kernel
+        self._walked = (0, 0)   # the last walk's FSE blocks and parts
 
     # -- host buffers ----------------------------------------------------
 
@@ -638,9 +597,13 @@ class TorchDecoder:
         clock.begin("parse")
         results: list = [None] * len(sources)
         ptrs = self._native.src_ptrs(sources)
-        desc, w16, parts, cpo, cont_nraw, cont_ok = \
-            self._native.walk_batch(sources, ptrs)
+        # the first try holds the last call's blocks and parts, so a
+        # decoder that sees one batch shape walks once a call
+        (desc, w16, parts, cpo, cont_nraw, cont_ok), tries = \
+            self._native.walk(ptrs, self._walked)
+        self._walked = (len(desc), len(parts))
         if stats is not None:
+            stats["walks"] = stats.get("walks", 0) + tries
             det = stats.setdefault("detail_parts", {})
             counts = _part_counts(parts, cpo, cont_nraw, cont_ok,
                                   _CARD_KINDS[self.use_native_rebuild])
@@ -863,7 +826,7 @@ class TorchDecoder:
             results[ci] = _spec(sources, ci, stats)
         # rebuild straight into each container's final bytes object
         n_raw = np.diff(out_offs_np)
-        out_bytes, out_ptrs = _new_outputs(n_raw)
+        out_bytes, out_ptrs = self._native.new_outputs(n_raw)
         clock.mark("flatten")
         clock.begin("rebuild")
         status = self._native.flatten_rebuild(
@@ -1124,7 +1087,7 @@ class TorchDecoder:
             cont_ids.append(ci)
             cont_off.append(len(part_rows))
             out_offs.append(out_offs[-1] + pc.n_raw)
-        out_bytes, out_ptrs = _new_outputs(np.diff(out_offs))
+        out_bytes, out_ptrs = self._native.new_outputs(np.diff(out_offs))
         clock.mark("flatten")
         clock.begin("rebuild")
         status = self._native.flatten_rebuild(
@@ -1170,9 +1133,10 @@ class TorchDecoder:
         threads; with the device rebuild only those with no block at all),
         their raw bytes ``host_only_bytes``, the raw bytes of every accepted container
         ``raw_bytes``, and the blocks of each kind, ``fse_blocks``,
-        ``vn_blocks`` and ``raw_blocks``; the scan path
-        (``use_kernels=False``) leaves it out. Every count and every
-        second adds to what ``stats`` already holds. Under an active
+        ``vn_blocks`` and ``raw_blocks``, and ``walks`` the tries of the
+        native walk (one where the batch fits the last call's capacity);
+        the scan path (``use_kernels=False``) leaves both out. Every count
+        and every second adds to what ``stats`` already holds. Under an active
         ``torch.profiler`` session the call is a ``lzfse.decode_many``
         range with a ``lzfse.decode.<stage>`` range a stage inside it
         (``lzfse.decode.prep.tables`` for ``prep_tables``). Not

@@ -1,6 +1,6 @@
 """Build the port's native libraries from the sources in the checkout.
 
-Two shared libraries, each compiled at first use into ``build/`` at the
+Three shared libraries, each compiled at first use into ``build/`` at the
 repository root (listed in ``.gitignore``) and rebuilt only when the hash
 of its sources, flags and target changes:
 
@@ -15,6 +15,12 @@ of its sources, flags and target changes:
   (a copy of the JAX package's ctypes wrapper). It is built on the host
   that runs it, since ``-march=native`` code may hold instructions another
   host lacks; no prebuilt library is ever loaded.
+* ``build/libpyobjects.so`` -- the decoder's per-container work on Python
+  objects (``runtime/src/pyobjects.c``: the sources' buffer addresses and
+  lengths, the output bytes objects), compiled by ``gcc`` against the
+  running interpreter's ``Python.h`` and loaded with ``ctypes.PyDLL``,
+  which keeps the interpreter lock held through each call. Only the
+  decoder needs it, and it is built at its first use.
 
 A failed build raises ``BuildError`` carrying the compiler's stderr.
 """
@@ -29,12 +35,15 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
+import sysconfig
 
 PKG = pathlib.Path(__file__).resolve().parents[1]
 ROOT = PKG.parent
 BUILD_DIR = ROOT / "build"
 CSRC = PKG / "csrc"
 NATIVE_SRC = PKG / "runtime" / "src" / "tpulzfse.cpp"
+OBJECTS_SRC = PKG / "runtime" / "src" / "pyobjects.c"
 
 # each source compiles alone (``-c``), all at once; one link joins them:
 # 9.13 s against 12.01 s for one nvcc of all sources (same flags, mean of
@@ -46,6 +55,7 @@ NVCC_LINK = ("-shared", "-Xcompiler", "-fPIC")
 NATIVE_FLAGS = ("-O3", "-march=native", "-fPIC", "-std=c++17", "-Wall",
                 "-pthread")
 NATIVE_LINK = ("-shared", "-pthread")
+OBJECTS_FLAGS = ("-O2", "-fPIC", "-std=c11", "-Wall")
 
 
 class BuildError(RuntimeError):
@@ -163,17 +173,46 @@ def build_native() -> pathlib.Path:
                   [cxx, *NATIVE_LINK], [NATIVE_SRC], _cpu_fingerprint())
 
 
+def build_objects() -> pathlib.Path:
+    """Compile ``runtime/src/pyobjects.c`` against this interpreter's
+    headers into ``build/libpyobjects.so``."""
+    cc = shutil.which("gcc")
+    if cc is None:
+        raise BuildError("gcc not found: the decoder's object helpers "
+                         "cannot be built")
+    include = sysconfig.get_paths()["include"]
+    if not (pathlib.Path(include) / "Python.h").exists():
+        raise BuildError(f"Python.h not found under {include}: the "
+                         f"decoder's object helpers cannot be built")
+    return _build(BUILD_DIR / "libpyobjects.so",
+                  [cc, *OBJECTS_FLAGS, f"-I{include}"], [cc, "-shared"],
+                  [OBJECTS_SRC], sys.version)
+
+
+def _load(so: pathlib.Path, loader):
+    try:
+        return loader(str(so))
+    except OSError as exc:
+        raise BuildError(f"cannot load {so}: {exc}") from exc
+
+
+def load_objects():
+    """``build/libpyobjects.so``, built if it is not current and loaded
+    with ``ctypes.PyDLL``. ``runtime.native`` calls this on the first use
+    of the functions it holds; raises ``BuildError`` when it cannot be
+    built or loaded."""
+    return _load(build_objects(), ctypes.PyDLL)
+
+
 def native_runtime():
     """The port's ``runtime.native`` module, running on the library built
     here. Builds and installs it on first call; raises ``BuildError`` when
-    it cannot be built or loaded."""
+    it cannot be built or loaded. ``libpyobjects.so`` is built later, on
+    the first call that needs it (``load_objects``)."""
     from . import native
     so = build_native()
     if native._LIB is None or getattr(native._LIB, "_name", None) != str(so):
-        try:
-            lib = ctypes.CDLL(str(so))
-        except OSError as exc:
-            raise BuildError(f"cannot load {so}: {exc}") from exc
+        lib = _load(so, ctypes.CDLL)
         native._configure(lib)
         native._LIB = lib
         native._TRIED = True

@@ -259,31 +259,102 @@ def build_tables_into(weights, v_row, u_row) -> None:
                            u_row.ctypes.data)
 
 
-def _bytes_data_offset() -> int:
-    """How far a bytes object's buffer lies from the object (``id``)."""
-    probe = b"offset probe"
-    addr = ctypes.cast(ctypes.c_char_p(probe), ctypes.c_void_p).value
-    return addr - id(probe)
+def _configure_objects(lib) -> None:
+    """Declare the functions of ``runtime/src/pyobjects.c``, loaded with
+    ``ctypes.PyDLL``: they hold the interpreter lock, and an exception they
+    set is raised when they return."""
+    lib.lzt_source_spans.restype = ctypes.c_int
+    lib.lzt_source_spans.argtypes = [ctypes.py_object, ctypes.c_ssize_t,
+                                     ctypes.c_void_p, ctypes.c_void_p]
+    lib.lzt_new_outputs.restype = ctypes.py_object
+    lib.lzt_new_outputs.argtypes = [ctypes.c_void_p, ctypes.c_ssize_t,
+                                    ctypes.c_void_p]
 
 
-BYTES_DATA = _bytes_data_offset()
+_OBJ = None   # runtime/src/pyobjects.c, built and loaded at first use
+
+
+def _obj():
+    """The library of ``runtime/src/pyobjects.c``, built (against this
+    interpreter's ``Python.h``) and loaded on the first call, so only a
+    caller of ``src_ptrs`` or ``new_outputs`` needs the headers. Raises
+    ``build.BuildError`` when it cannot be built or loaded."""
+    global _OBJ
+    if _OBJ is None:
+        from .build import load_objects
+        lib = load_objects()
+        _configure_objects(lib)
+        _OBJ = lib
+    return _OBJ
 
 
 def src_ptrs(sources):
-    """The char* array of a list of bytes objects, made from their
-    addresses (``id`` plus ``BYTES_DATA``) in one pass, with no ctypes
-    conversion a source. It does not keep the sources alive: the caller
-    holds them while the array is in use. Raises TypeError for anything
-    that is not a bytes object. A caller that passes one batch to several
-    of ``walk_batch``, ``gather_payloads`` and ``flatten_rebuild`` builds
-    it once and gives it to each as ``ptrs``."""
+    """(addresses, lengths): two int64 arrays of the buffer address and the
+    length of each bytes object of the list ``sources``, filled by one C
+    loop (``lzt_source_spans``). It does not keep the sources alive: the
+    caller holds them while the arrays are in use. Raises TypeError for
+    anything that is not a bytes object. A caller that passes one batch to
+    several of ``walk``, ``walk_batch``, ``gather_payloads`` and
+    ``flatten_rebuild`` builds the pair once and gives it to each as
+    ``ptrs``."""
     import numpy as np
     n = len(sources)
-    for t in set(map(type, sources)):
-        if not issubclass(t, bytes):
-            raise TypeError(f"src_ptrs takes bytes objects, not {t.__name__}")
-    addr = np.fromiter(map(id, sources), np.int64, n) + BYTES_DATA
-    return (ctypes.c_char_p * n).from_buffer(addr)
+    spans = np.empty((2, n), np.int64)
+    _obj().lzt_source_spans(sources, n, spans[0].ctypes.data,
+                            spans[1].ctypes.data)
+    return spans[0], spans[1]
+
+
+def new_outputs(sizes):
+    """(outputs, addresses): a new list of bytes objects of ``sizes``
+    bytes, their contents UNINITIALIZED until the caller writes them, and
+    an int64 array of their buffers' addresses, made by one C loop
+    (``lzt_new_outputs``)."""
+    import numpy as np
+    sizes = np.ascontiguousarray(sizes, np.int64)
+    addrs = np.empty(len(sizes), np.int64)
+    out = _obj().lzt_new_outputs(sizes.ctypes.data, len(sizes),
+                                 addrs.ctypes.data)
+    return out, addrs
+
+
+# the smallest first try of the walk, in FSE blocks and parts; a try that
+# the batch outgrows is walked again at 4x both
+_WALK_CAPS = (512, 1024)
+
+
+def walk(ptrs, last=(0, 0)):
+    """``walk_batch`` over the batch ``ptrs`` (``src_ptrs``'s pair).
+    Returns (the walk, the tries it took). The first try holds ``last``
+    (a caller's memory of its previous walk: FSE blocks, parts), 512
+    blocks and 1,024 parts at least, and a part for every container."""
+    import numpy as np
+    addrs, lens = ptrs
+    n = len(addrs)
+    cap_fse = max(last[0], _WALK_CAPS[0])
+    cap_parts = max(last[1], _WALK_CAPS[1], n)
+    tries = 0
+    while True:
+        tries += 1
+        desc = np.empty((cap_fse, 20), np.int32)
+        weights = np.empty((cap_fse, 360), np.uint16)
+        parts = np.empty((cap_parts, 6), np.int32)
+        cont_part_off = np.empty(n + 1, np.int32)
+        cont_nraw = np.empty(n, np.int64)
+        cont_ok = np.empty(n, np.int32)
+        counts = np.empty(2, np.int64)
+        rc = _lib().tl_walk_batch(
+            addrs.ctypes.data, lens.ctypes.data, n,
+            desc.ctypes.data, weights.ctypes.data, cap_fse,
+            parts.ctypes.data, cap_parts, cont_part_off.ctypes.data,
+            cont_nraw.ctypes.data, cont_ok.ctypes.data,
+            counts.ctypes.data)
+        if rc == 0:
+            nf, npts = int(counts[0]), int(counts[1])
+            return (desc[:nf], weights[:nf], parts[:npts], cont_part_off,
+                    cont_nraw, cont_ok), tries
+        cap_fse *= 4
+        cap_parts *= 4
 
 
 def walk_batch(sources, ptrs=None):
@@ -295,32 +366,7 @@ def walk_batch(sources, ptrs=None):
     contributed nothing; the caller re-parses them in Python for exact
     error semantics. Part kinds: 0 = FSE (a = fse idx), 2 = LZVN payload
     in src, 3 = RAW body in src (see tpulzfse.cpp tl_walk_batch)."""
-    import numpy as np
-    n = len(sources)
-    if ptrs is None:
-        ptrs = src_ptrs(sources)
-    lens = np.fromiter(map(len, sources), np.int64, n)
-    cap_fse, cap_parts = 512, 1024
-    while True:
-        desc = np.empty((cap_fse, 20), np.int32)
-        weights = np.empty((cap_fse, 360), np.uint16)
-        parts = np.empty((cap_parts, 6), np.int32)
-        cont_part_off = np.empty(n + 1, np.int32)
-        cont_nraw = np.empty(n, np.int64)
-        cont_ok = np.empty(n, np.int32)
-        counts = np.empty(2, np.int64)
-        rc = _lib().tl_walk_batch(
-            ctypes.addressof(ptrs), lens.ctypes.data, n,
-            desc.ctypes.data, weights.ctypes.data, cap_fse,
-            parts.ctypes.data, cap_parts, cont_part_off.ctypes.data,
-            cont_nraw.ctypes.data, cont_ok.ctypes.data,
-            counts.ctypes.data)
-        if rc == 0:
-            nf, npts = int(counts[0]), int(counts[1])
-            return (desc[:nf], weights[:nf], parts[:npts], cont_part_off,
-                    cont_nraw, cont_ok)
-        cap_fse *= 4
-        cap_parts *= 4
+    return walk(src_ptrs(sources) if ptrs is None else ptrs)[0]
 
 
 def gather_payloads(sources, desc, dst_l, dst_m, stage, ptrs=None) -> None:
@@ -328,7 +374,7 @@ def gather_payloads(sources, desc, dst_l, dst_m, stage, ptrs=None) -> None:
     compact 512B-chunk staging buffer (replaces join+copy)."""
     if ptrs is None:
         ptrs = src_ptrs(sources)
-    _lib().tl_gather_payloads(ctypes.addressof(ptrs), desc.ctypes.data,
+    _lib().tl_gather_payloads(ptrs[0].ctypes.data, desc.ctypes.data,
                               desc.shape[0], dst_l.ctypes.data,
                               dst_m.ctypes.data, stage.ctypes.data)
 
@@ -355,7 +401,7 @@ def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
     int64 array of per-container output base addresses — when given, each
     container rebuilds straight into its own buffer (the caller's final
     bytes objects) and `out` is ignored except as a dummy; ptrs: `sources`'
-    `src_ptrs` array, when the caller has built it.
+    `src_ptrs` pair, when the caller has built it.
     Returns (n_conts,) int64 per-container bytes-written-or-negative-error.
     """
     import numpy as np
@@ -378,7 +424,7 @@ def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
         parts.ctypes.data, cont_part_off.ctypes.data, out_offs.ctypes.data,
         host_rows.ctypes.data, host_lits.ctypes.data, out.ctypes.data,
         status.ctypes.data, n_conts, lit_rows.size, host_lits.size,
-        ctypes.addressof(ptrs),
+        ptrs[0].ctypes.data,
         out_ptrs.ctypes.data if out_ptrs is not None else None)
     return status
 

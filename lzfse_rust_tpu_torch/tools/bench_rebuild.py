@@ -84,26 +84,21 @@ def out_to_host(out: torch.Tensor, out_off: np.ndarray, pinned=None,
     """The output segments as bytes objects: copied from the card into each
     object's buffer, or (``pinned`` given) into ``pinned`` first and then
     into each object, by the threads of ``pool`` when given."""
-    from ..models.decoder import _bytes_addr, _new_bytes, copy_segments
-    if pinned is None:
-        res = []
-        for a, b in zip(out_off[:-1].tolist(), out_off[1:].tolist()):
-            r = _new_bytes(b - a)
-            if b > a:
-                buf = (ctypes.c_uint8 * (b - a)).from_address(_bytes_addr(r))
-                torch.from_numpy(np.ctypeslib.as_array(buf)).copy_(out[a:b])
-            res.append(r)
-        return res
-    pinned[:out.numel()].copy_(out)
-    base = pinned.data_ptr()
-    if pool is not None:
-        return copy_segments(base, zip(out_off[:-1].tolist(),
-                                       out_off[1:].tolist()), pool)
-    res = []
-    for a, b in zip(out_off[:-1].tolist(), out_off[1:].tolist()):
-        r = _new_bytes(b - a)
-        ctypes.memmove(_bytes_addr(r), base + a, b - a)
-        res.append(r)
+    from ..models.decoder import copy_segments
+    from ..runtime import native
+    spans = list(zip(out_off[:-1].tolist(), out_off[1:].tolist()))
+    if pinned is not None:
+        pinned[:out.numel()].copy_(out)
+        base = pinned.data_ptr()
+        if pool is not None:
+            return copy_segments(base, spans, pool)
+    res, dsts = native.new_outputs(np.diff(out_off))
+    for (a, b), dst in zip(spans, dsts.tolist()):
+        if pinned is not None:
+            ctypes.memmove(dst, base + a, b - a)
+        elif b > a:
+            buf = (ctypes.c_uint8 * (b - a)).from_address(dst)
+            torch.from_numpy(np.ctypeslib.as_array(buf)).copy_(out[a:b])
     return res
 
 

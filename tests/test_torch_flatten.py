@@ -23,6 +23,8 @@ from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.spec import container as spec_container
 from lzfse_rust_tpu_torch.utils import corpus
 
+from torch_kit import bytes_addr
+
 
 def _loop_flatten(parts, cpo, cont_nraw, cont_ok, fse_ok, batch):
     """The per-container flatten loop ``_flatten_plan`` replaced, with the
@@ -136,38 +138,39 @@ def test_flatten_plan_equals_the_loop(name, check, kinds):
 
 def test_new_outputs_gives_each_buffer_address():
     sizes = np.array([0, 1, 7, 4096, 300_000], np.int64)
-    out, ptrs = D._new_outputs(sizes)
+    out, ptrs = native_runtime().new_outputs(sizes)
     assert [len(b) for b in out] == sizes.tolist()
     assert ptrs.dtype == np.int64
-    assert ptrs.tolist() == [D._bytes_addr(b) for b in out]
+    assert ptrs.tolist() == [bytes_addr(b) for b in out]
 
 
 @pytest.mark.parametrize("sizes", [[0, 1, 7, 4095, 4096, 300_000, 2, 9000],
                                    [1, 1, 300, 4095], [4096, 70_000], []])
 def test_new_outputs_small_and_large_alone_and_mixed(sizes):
-    """Outputs below and from ``_ZERO_FILL_BELOW`` bytes, each kind alone
-    and mixed: fresh bytes objects of the sizes asked for, in order, each
-    its own (the empty one aside), at the addresses given."""
+    """Outputs below and from 4 KiB, each kind alone and mixed: fresh
+    bytes objects of the sizes asked for, in order, each its own (the
+    empty one aside), at the addresses given."""
     sizes = np.array(sizes, np.int64)
-    out, ptrs = D._new_outputs(sizes)
+    out, ptrs = native_runtime().new_outputs(sizes)
     assert [len(b) for b in out] == sizes.tolist()
     assert all(type(b) is bytes for b in out)
     assert len({id(b) for b in out if b}) == np.count_nonzero(sizes)
-    assert ptrs.tolist() == [D._bytes_addr(b) for b in out]
+    assert ptrs.tolist() == [bytes_addr(b) for b in out]
 
 
 def test_src_ptrs_point_at_each_source():
-    """``native.src_ptrs`` holds each source's buffer address, through
-    which the source's bytes read back, for an empty batch too; anything
-    that is not a bytes object raises TypeError."""
+    """``native.src_ptrs`` holds each source's buffer address and length,
+    through which the source's bytes read back, for an empty batch too;
+    anything that is not a bytes object raises TypeError."""
     import ctypes
     nat = native_runtime()
     srcs = [b"", b"a", b"bvx-" + bytes(50), corpus.EMPTY, bytes(9000)]
-    got = nat.src_ptrs(srcs)
-    addrs = np.frombuffer(got, np.int64).tolist()
-    assert addrs == [D._bytes_addr(b) for b in srcs]
-    assert [ctypes.string_at(a, len(b)) for a, b in zip(addrs, srcs)] == srcs
-    assert len(nat.src_ptrs([])) == 0
+    addrs, lens = nat.src_ptrs(srcs)
+    assert addrs.tolist() == [bytes_addr(b) for b in srcs]
+    assert lens.tolist() == [len(b) for b in srcs]
+    assert [ctypes.string_at(a, n) for a, n in zip(addrs.tolist(),
+                                                   lens.tolist())] == srcs
+    assert [len(x) for x in nat.src_ptrs([])] == [0, 0]
     for bad in ([b"ab", bytearray(b"cd")], [b"ab", memoryview(b"cd")],
                 [None], ["text"]):
         with pytest.raises(TypeError, match="takes bytes objects"):

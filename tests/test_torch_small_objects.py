@@ -166,12 +166,37 @@ def test_counts_add_up_over_calls_and_leave_out_rejected(etc):
 
 
 def test_thousands_of_containers_outgrow_the_walk_capacity(etc):
-    """Four copies of the batch, 2,056 containers: more parts than the
-    native walk's first capacity (1,024), so the walk grows and walks
-    again; every output is still the raw input."""
+    """Four copies of the batch, 2,056 values, each three in turn joined
+    into one container of their blocks: 686 containers with more parts
+    than the native walk's first capacity (1,024 parts, and at least one a
+    container), so a new decoder's walk grows and walks again; every
+    output is still the raw input. The decoder's next call starts from the
+    capacity the first one reached and walks once."""
+    raws, conts = (x * 4 for x in etc)
+    raws = [b"".join(raws[i:i + 3]) for i in range(0, len(raws), 3)]
+    conts = [b"".join(c[:-4] for c in conts[i:i + 3]) + b"bvx$"
+             for i in range(0, len(conts), 3)]
+    want = reference_counts(conts)
+    assert want["containers"] == 686
+    assert want["fse_blocks"] + want["vn_blocks"] + want["raw_blocks"] > 1024
+    dec = TorchDecoder("cpu")
+    for walks in (2, 1):
+        stats: dict = {}
+        assert dec.decode_many(conts, stats) == raws
+        assert stats.get("fallbacks", 0) == 0
+        assert stats["detail_parts"] == want
+        assert stats["walks"] == walks
+
+
+def test_thousands_of_containers_walk_once(etc):
+    """Four copies of the batch, 2,056 containers of one block each: more
+    containers than the native walk's smallest first capacity (1,024
+    parts), yet a new decoder walks once, since the first try holds a part
+    a container; every output is still the raw input."""
     raws, conts = (x * 4 for x in etc)
     stats: dict = {}
     assert TorchDecoder("cpu").decode_many(conts, stats) == raws
     assert stats.get("fallbacks", 0) == 0
     assert stats["detail_parts"] == reference_counts(conts)
     assert stats["detail_parts"]["containers"] == 2056
+    assert stats["walks"] == 1

@@ -1,8 +1,10 @@
 """Helpers shared by the port's tests: parse corpus containers into FSE
 blocks and build the port's decode kernel arguments from them; split raw
 sources into the native frontend's blocks and stage them as the encode
-kernels take them; build match-finder windows and group their positions.
-Imports no JAX, so the tests that run on a card can use it."""
+kernels take them; build match-finder windows and group their positions;
+read a bytes object's buffer address. Imports no JAX, so the tests that run on a card can use it."""
+
+import ctypes
 
 import numpy as np
 import torch
@@ -14,6 +16,14 @@ from lzfse_rust_tpu_torch.ops import cuda_decode as K
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 
 LMD_OFF = (0, C.L_STATES, C.L_STATES + C.M_STATES)
+
+_PyBytes_AsString = ctypes.PYFUNCTYPE(ctypes.c_void_p, ctypes.py_object)(
+    ("PyBytes_AsString", ctypes.pythonapi))
+
+
+def bytes_addr(b: bytes) -> int:
+    """The address of a bytes object's buffer (``PyBytes_AsString``)."""
+    return _PyBytes_AsString(b)
 
 
 def blocks_of(pairs):
