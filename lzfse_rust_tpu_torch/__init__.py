@@ -31,8 +31,9 @@ The command-line tool is ``python3 -m lzfse_rust_tpu_torch.cli``.
 Layout mirrors the reference: ``runtime/`` builds and binds the native
 libraries, ``csrc/`` holds the CUDA sources, ``ops/`` the kernel wrappers
 with their plain PyTorch versions, ``models/`` the decoder and the encoder,
-``parallel/`` several devices, ``utils/`` the timing helpers and the seeded
-corpus, ``tools/`` the measurement tools.
+``parallel/`` several devices, ``utils/`` the timing helpers and span
+recorder, the engines' host buffers and the seeded corpus, ``tools/`` the
+measurement tools.
 """
 
 from .api import (LzfseDecoder, LzfseEncoder, LzfseReader, LzfseReaderBytes,

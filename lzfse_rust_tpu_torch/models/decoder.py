@@ -1,44 +1,43 @@
 """TorchDecoder -- batched LZFSE container decode on a CUDA device.
 
-Counterpart of the serving path of ``lzfse_rust_tpu.models.decoder``
-(``TpuDecoder.decode_many`` -> ``_walk_front``/``_walk_back``). The host
-layers are the port's own copies of the JAX package's (``base``, ``spec``,
-``runtime/native.py`` and the C++ runtime, and the container-parse helpers
-below): the native container walk, table build, payload gather and
-flatten/rebuild, and the spec layer for exact errors. What runs on the
-device is the two FSE stream-decode kernels of ``ops/cuda_decode.py``.
+Counterpart of ``lzfse_rust_tpu.models.decoder`` (``TpuDecoder.decode_many``
+with ``_walk_front``/``_walk_back``). The host layers are the port's own
+copies of the JAX package's (``base``, ``spec``, ``runtime/native.py`` and
+the C++ runtime, and the container-parse helpers below): the native
+container walk, table build, payload gather and flatten/rebuild, and the
+spec layer for exact errors.
 
-Per call:
+Every call runs three stages, whatever the options:
 
-1. parse: ``native.walk``; a container the walk rejects is re-parsed
-   by ``_parse_container`` (raising the precise exception) or decoded by
-   the spec layer;
-2. prep: blocks are size-sorted (warps then run similar step counts), the
-   decode tables are built and the payloads gathered, all straight into
-   one staging buffer (pinned on a CUDA device);
-3. upload: one ``non_blocking`` copy of that buffer; the kernels read each
-   block's payload out of it by word offset and length;
-4. device: the literal and L/M/D kernels, on two CUDA streams joined
-   before the download, write dense outputs at host-computed offsets; the
-   outputs and final states come back in one pinned buffer;
-5. the host checks each stream's final states and position, then
-   ``native.flatten_rebuild`` writes every container's bytes. A failed
-   check or rebuild status sends the container to the spec layer and
-   counts in ``stats["fallbacks"]``.
+1. front: ``native.walk`` parses the batch; a container the walk rejects
+   is re-parsed by ``_parse_container`` (raising the precise exception) or
+   decoded by the spec layer. Then the FSE stage's host half (``prep``)
+   stages the FSE blocks for the device.
+2. FSE stage (``device``), chosen by ``use_kernels``: the two stream-decode
+   kernels of ``ops/cuda_decode.py`` (blocks size-sorted, tables built and
+   payloads gathered straight into one staging buffer, pinned on a card,
+   uploaded by one ``non_blocking`` copy; the literal and L/M/D kernels on
+   two CUDA streams), or the torch-op scans (``ops/table_build``,
+   ``ops/fse_decode``) on payloads gathered into padded rows. Either
+   leaves on the device the literal bytes, ``lm`` and raw ``d`` of every
+   block with each block's row and literal offsets and counts, and each
+   stream's final states and bit position (``_Batch``, ``_fse``).
+3. rebuild, chosen by ``use_native_rebuild``: the outputs come back in one
+   pinned buffer, the host checks each stream's final states and
+   position, then ``native.flatten_rebuild`` writes every container's
+   bytes; or the outputs stay on the device, are flattened there into each
+   container's row stream and literal pool with its LZVN/RAW parts
+   (``ops/lz_rebuild.flatten_pieces``), the rebuild kernel of
+   ``ops/cuda_rebuild.py`` writes the bytes, and only the final states,
+   the checks and the output bytes come back. A failed check or rebuild
+   sends the container to the spec layer and counts in
+   ``stats["fallbacks"]``.
 
-With ``use_native_rebuild=False`` steps 4-5 stay on the device: the
-kernels' outputs are flattened there into each container's row stream and
-literal pool with its LZVN/RAW parts (``ops/lz_rebuild.flatten_pieces``),
-the rebuild kernel of ``ops/cuda_rebuild.py`` writes the bytes, and only
-the final states, the checks and the output bytes come back. With
-``use_kernels=False`` the JAX decoder's portable path runs instead: the
-Python parse, the decode tables and the stream scans as torch ops
-(``ops/table_build``, ``ops/fse_decode``), then either rebuild.
-
-With a ``mesh`` (``parallel/mesh.py``) step 3 uploads each shard's region
-of the staging buffer to its own device and step 4 runs both kernels on
-every shard (``parallel/mesh.launch_decode``); the outputs come back into
-the one host buffer in batch order, so step 5 is unchanged.
+With a ``mesh`` (``parallel/mesh.py``; kernels and native rebuild only)
+the upload sends each shard's region of the staging buffer to its own
+device and both kernels run on every shard
+(``parallel/mesh.launch_decode``); the outputs come back into the one host
+buffer in batch order, so the rebuild is unchanged.
 
 ``device="cpu"`` runs the kernels' plain versions; it exists for the
 tests. A CUDA device without a card raises: there is no silent CPU path.
@@ -47,8 +46,6 @@ tests. A CUDA device without a card raises: there is no silent CPU path.
 from __future__ import annotations
 
 import ctypes as _ct
-import resource
-import time
 from collections import deque
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -72,6 +69,8 @@ from ..spec import container as spec_container
 from ..spec import fse as F
 from ..spec import vn as V
 from ..spec import weights as W
+from ..utils.buffers import _round_up, download, download_groups, host_buffer
+from ..utils.timing import _Clock
 
 # --- host helpers, copied from lzfse_rust_tpu/models/decoder.py ------------
 
@@ -182,10 +181,6 @@ def _parse_container(src: bytes, ci: int, fse_blocks: list) -> _ParsedContainer:
     return out
 
 
-def _round_up(x: int, m: int) -> int:
-    return (x + m - 1) // m * m
-
-
 _ALIGN = 512  # payload alignment in the flat upload cat (128 int32 words)
 
 def _put(results: list, at: np.ndarray, values) -> None:
@@ -201,155 +196,6 @@ _ROWS = ("lit_pos", "lmd_pos", "lit_num", "lmd_num", "lit_off", "lmd_off",
 _W = _ALIGN // 4  # payload chunk, in int32 words
 
 
-def _thread_cpu() -> tuple[float, float]:
-    """The calling thread's CPU seconds so far (``CLOCK_THREAD_CPUTIME_ID``)
-    and its system seconds as the kernel splits them off by tick samples
-    (``getrusage(RUSAGE_THREAD)``, which may lag a tick behind)."""
-    return (time.thread_time(),
-            resource.getrusage(resource.RUSAGE_THREAD).ru_stime)
-
-
-class _Clock:
-    """The port's span recorder: one a ``decode_many`` / ``encode_many``
-    call, on the calling thread. A stage runs from the last ``mark`` (or
-    the recorder's start) to ``mark(key)``, which closes it under ``key``:
-
-    - its wall seconds are added to ``stats[key]``;
-    - the calling thread's CPU seconds in it, user and system, to
-      ``stats["detail_cpu"][key]``, a ``{"user": s, "sys": s}``. Their sum
-      is the thread's CPU clock: exact on a Linux host, a sample where the
-      clock steps by scheduler ticks (10 ms on the benchmark's card
-      machine), right then only as a mean over many calls. The system
-      share is the kernel's tick-sampled one, capped at the stage's CPU
-      seconds, what is over carried into the next stage (the kernel's
-      count lags). The other threads of a native stage are not counted,
-      so wall less CPU is the time the calling thread spent off a CPU:
-      waiting for the interpreter lock, a core, a page, or the join on a
-      native stage's slowest worker;
-    - under an active ``torch.profiler`` session, a recorder with a
-      ``name`` keeps one profiler range ``lzfse.<name>_many`` open while
-      it is entered (``with``) and one ``lzfse.<name>.<stage>`` from
-      ``begin(key)`` to the stage's mark, on the profiler's clock; a
-      ``prep_x`` stage's range is ``prep.x``.
-
-    With ``stats`` None no clock or CPU time is read; with no profiler
-    session no profiler function is called (one check a call). The
-    device side is ``_add_ms`` / ``_add_device_ms`` (CUDA events)."""
-
-    def __init__(self, stats: dict | None, name: str | None = None):
-        self.stats = stats
-        self.name = name
-        prof = torch.autograd.profiler
-        self._rf = (prof.record_function if name and getattr(
-            prof, "_is_profiler_enabled", False) else None)
-        self._call = self._stage = None   # the open profiler ranges
-        if stats is not None:
-            self.t = time.perf_counter()
-            self.cpu, self.sys = _thread_cpu()
-
-    def _range(self, label: str):
-        rng = self._rf(label)
-        rng.__enter__()
-        return rng
-
-    def _close_stage(self) -> None:
-        if self._stage is not None:
-            self._stage.__exit__(None, None, None)
-            self._stage = None
-
-    def __enter__(self) -> "_Clock":
-        if self._rf is not None:
-            self._call = self._range(f"lzfse.{self.name}_many")
-        return self
-
-    def __exit__(self, *exc) -> None:
-        self._close_stage()
-        if self._call is not None:
-            self._call.__exit__(None, None, None)
-            self._call = None
-
-    def begin(self, key: str) -> None:
-        """Stage ``key`` starts here: opens its profiler range inside the
-        call's (closing the last stage's, if still open)."""
-        if self._call is not None:
-            self._close_stage()
-            self._stage = self._range(f"lzfse.{self.name}."
-                                      + key.replace("prep_", "prep.", 1))
-
-    def mark(self, key: str) -> float:
-        """Close the stage since the last mark under ``key``: its wall and
-        CPU seconds into ``stats``, its range closed. Returns its wall
-        seconds (0.0 without ``stats``)."""
-        self._close_stage()
-        if self.stats is None:
-            return 0.0
-        t = time.perf_counter()
-        cpu_t, sys_t = _thread_cpu()
-        dt, used = t - self.t, cpu_t - self.cpu
-        sys_ = min(max(sys_t - self.sys, 0.0), used)
-        self.stats[key] = self.stats.get(key, 0.0) + dt
-        cpu = self.stats.setdefault("detail_cpu", {}).setdefault(
-            key, {"user": 0.0, "sys": 0.0})
-        cpu["user"] += used - sys_
-        cpu["sys"] += sys_
-        self.t, self.cpu = t, cpu_t
-        self.sys += sys_
-        return dt
-
-    def fold(self, parent: str) -> None:
-        """Sum the stages ``<parent>_*`` into ``parent``, wall and CPU
-        alike, each split kept under ``detail_<parent>``."""
-        if self.stats is None:
-            return
-        st = self.stats
-        det = {k: st.pop(k) for k in list(st) if k.startswith(parent + "_")}
-        st[parent] = st.get(parent, 0.0) + sum(det.values())
-        st["detail_" + parent] = det
-        cpu = st.setdefault("detail_cpu", {})
-        det = {k: cpu.pop(k) for k in list(cpu) if k.startswith(parent + "_")}
-        tot = cpu.setdefault(parent, {"user": 0.0, "sys": 0.0})
-        for d in det.values():
-            tot["user"] += d["user"]
-            tot["sys"] += d["sys"]
-        cpu["detail_" + parent] = det
-
-
-def host_buffer(old: torch.Tensor | None, n_words: int,
-                pinned: bool) -> torch.Tensor:
-    """A host int32 buffer of at least n_words: ``old`` when it is big
-    enough, else a new one (1 MiB steps), pinned when it feeds a card."""
-    if old is not None and old.numel() >= n_words:
-        return old
-    cap = _round_up(max(n_words, 1), 1 << 18)
-    return torch.empty(cap, dtype=torch.int32, pin_memory=pinned)
-
-
-def download(outs, buf: torch.Tensor | None, cuda: bool):
-    """Copy int32 device tensors into one host buffer (``buf`` reused when
-    big enough; pinned, with ``non_blocking`` copies, from a card). Returns
-    (buffer, numpy views shaped as ``outs``); on a card the views are valid
-    once the stream has passed the copies."""
-    return download_groups([[t] for t in outs], buf, cuda)
-
-
-def download_groups(groups, buf: torch.Tensor | None, cuda: bool):
-    """``download`` of groups of int32 tensors (a group's tensors may lie on
-    different devices): each group's tensors land one after another, so
-    its view is their concatenation along dim 0. Returns (buffer, one
-    numpy view per group)."""
-    buf = host_buffer(buf, sum(t.numel() for g in groups for t in g), cuda)
-    host = buf.numpy()
-    pieces, o = [], 0
-    for g in groups:
-        start = o
-        for t in g:
-            n = t.numel()
-            buf[o:o + n].copy_(t.reshape(-1), non_blocking=cuda)
-            o += n
-        pieces.append(host[start:o].reshape(-1, *g[0].shape[1:]))
-    return buf, pieces
-
-
 def _stream_ok(lit_fs, lit_fp, lmd_fs, lmd_fp) -> np.ndarray:
     """Per block (rows in block order): final states at their defaults and
     no payload underflow, >= 64 bits of pad left (fse_core.rs:132-140 +
@@ -360,17 +206,18 @@ def _stream_ok(lit_fs, lit_fp, lmd_fs, lmd_fp) -> np.ndarray:
     return lit_ok & lmd_ok
 
 
-def _flatten_plan(parts, cpo, cont_nraw, cont_ok, fse_ok, batch):
+def _flatten_plan(parts, cpo, cont_nraw, cont_ok, fse_ok, row_off, lit_off):
     """The native rebuild's inputs for a walked batch, as array operations
     over its parts (``native.walk_batch``'s ``parts``, ``cont_part_off``,
-    ``cont_nraw`` and ``cont_ok``) and each FSE block's stream check
-    ``fse_ok``. Returns (kept, failed, parts, cont_off, out_offs): the
-    containers the walk accepted whose FSE blocks all passed, in order;
-    those with a block that failed, in order (the spec layer decodes them);
-    the kept containers' parts, each FSE part pointed at its block's dense
-    outputs in ``batch`` (``P[1]`` the L/M/D word offset, ``P[4]`` the
-    literal byte offset); and the kept containers' part and output
-    offsets."""
+    ``cont_nraw`` and ``cont_ok``), each FSE block's stream check
+    ``fse_ok`` and its L/M/D word offset ``row_off`` and literal byte
+    offset ``lit_off`` in the FSE stage's outputs. Returns (kept, failed,
+    parts, cont_off, out_offs): the containers the walk accepted whose FSE
+    blocks all passed, in order; those with a block that failed, in order
+    (the spec layer decodes them); the kept containers' parts, each FSE
+    part pointed at its block's outputs (``P[1]`` the L/M/D word offset,
+    ``P[4]`` the literal byte offset); and the kept containers' part and
+    output offsets."""
     n = len(cont_ok)
     owner = np.repeat(np.arange(n), np.diff(cpo))
     fse = parts[:, 0] == 0
@@ -383,8 +230,8 @@ def _flatten_plan(parts, cpo, cont_nraw, cont_ok, fse_ok, batch):
         k0 = parts_np[:, 0] == 0
         if k0.any():
             g = parts_np[k0, 1]
-            parts_np[k0, 1] = batch.off_m[batch.sm_n[g]]
-            parts_np[k0, 4] = batch.off_l[batch.sl_n[g]] * 4
+            parts_np[k0, 1] = row_off[g]
+            parts_np[k0, 4] = lit_off[g]
     cont_off = np.zeros(len(kept) + 1, np.int32)
     np.cumsum(np.diff(cpo)[kept], out=cont_off[1:])
     out_offs = np.zeros(len(kept) + 1, np.int64)
@@ -506,37 +353,49 @@ def copy_segments(base: int, spans, pool) -> list[bytes]:
 
 @dataclass
 class _Batch:
-    """One call's kernel arguments (device tensors, one pair of dicts per
-    shard) and the host maps from block index to sorted slot and dense
-    output offset (over the whole sorted batch: the shards' outputs
-    concatenated)."""
+    """One call's FSE blocks as the FSE stage takes them, and where each
+    block's outputs land. ``lit`` and ``lmd`` hold per shard the literal
+    and L/M/D decoders' inputs on its device (the kernels' keyword
+    arguments, or the scans' padded payloads, states, positions and
+    counts), ``weights`` the scans' (nb, 360) weights. Per block, in block
+    order: ``sl_n`` / ``sm_n`` its slot in the literal / L/M/D outputs (the
+    shards' outputs concatenated), where its final states and position
+    lie; ``rows`` its L/M/D word offset and count in ``lm`` and ``d``;
+    ``lits`` its literal byte offset and count."""
     lit: list
     lmd: list
     sl_n: np.ndarray
     sm_n: np.ndarray
-    off_l: np.ndarray
-    off_m: np.ndarray
-    lit_n: np.ndarray   # per block, in block order: literals, L/M/D rows
-    lmd_n: np.ndarray
+    rows: tuple   # (offsets, counts)
+    lits: tuple
+    weights: torch.Tensor | None = None
     upload: list | None = None   # per shard, CUDA events around its upload
+
+
+def _no_blocks() -> _Batch:
+    """The batch of a call without an FSE block."""
+    e = np.zeros(0, np.int64)
+    return _Batch([], [], e, e, (e, e), (e, e))
 
 
 class TorchDecoder:
     """Batched container decoder whose FSE stream decode runs in the CUDA
-    kernels of ``ops/cuda_decode.py`` (or their plain versions on CPU)."""
+    kernels of ``ops/cuda_decode.py`` (their plain versions on the CPU) or
+    in the torch-op scans."""
 
     def __init__(self, device="cuda", use_kernels: bool = True,
                  use_native_rebuild: bool = True, mesh=None):
-        """``use_kernels`` is the counterpart of ``TpuDecoder``'s
-        ``use_pallas``: True decodes the FSE streams in the CUDA kernels of
-        ``ops/cuda_decode.py`` after the native container walk; False runs
-        the portable path, the Python parse with the decode tables and the
-        stream scans as torch ops (``ops/table_build``, ``ops/fse_decode``).
-        ``use_native_rebuild``: True rebuilds the output on the host
-        (``native.flatten_rebuild``); False flattens and rebuilds on the
-        device (``ops/lz_rebuild.flatten_pieces``, then the CUDA kernel of
+        """``use_kernels`` chooses the FSE stage, the counterpart of
+        ``TpuDecoder``'s ``use_pallas``: True decodes the FSE streams in
+        the CUDA kernels of ``ops/cuda_decode.py``; False in the portable
+        path's decode tables and stream scans as torch ops
+        (``ops/table_build``, ``ops/fse_decode``). ``use_native_rebuild``
+        chooses the rebuild: True on the host (``native.flatten_rebuild``);
+        False flattens and rebuilds on the device
+        (``ops/lz_rebuild.flatten_pieces``, then the CUDA kernel of
         ``ops/cuda_rebuild.py``), so only the output bytes come back. The
-        defaults are the serving path.
+        native container walk runs in front of every pair. The defaults
+        are the serving path.
 
         ``mesh`` (``parallel/mesh.make_mesh``, devices of ``device``'s
         type): the size-sorted block batch, padded with inert slots to a
@@ -567,6 +426,12 @@ class TorchDecoder:
         self.mesh = mesh
         # a decoder without a mesh is a one-shard mesh of its device
         self._mesh = mesh if mesh is not None else Mesh((self.device,))
+        # the FSE stage (host half, device half) and the rebuild
+        self._fse_prep, self._fse_run = (
+            (self._prep, self._launch) if self.use_kernels
+            else (self._scan_prep, self._scans))
+        self._rebuild = (self._back if self.use_native_rebuild
+                         else self._back_device)
         self._native = native_runtime()
         self._native.alloc_reuse()  # warm-page reuse for output bytes
         self._stage: torch.Tensor | None = None   # host staging, int32
@@ -592,8 +457,9 @@ class TorchDecoder:
     # -- pipeline --------------------------------------------------------
 
     def _front(self, sources: list[bytes], stats: dict | None, clock: _Clock):
-        """Parse, prep and upload. Returns (results, frame); results holds
-        spec-layer decodes of containers the walk rejected."""
+        """Parse, then the FSE stage's host half (``prep``). Returns
+        (results, frame); results holds spec-layer decodes of containers
+        the walk rejected."""
         clock.begin("parse")
         results: list = [None] * len(sources)
         ptrs = self._native.src_ptrs(sources)
@@ -616,14 +482,20 @@ class TorchDecoder:
             _parse_container(sources[ci], ci, [])
             results[ci] = _spec(sources, ci, stats)
         clock.mark("parse")
-        batch = (self._prep(sources, ptrs, desc, w16, clock) if len(desc)
-                 else None)
-        if batch is None:
+        if len(desc):
+            batch = self._fse_prep(sources, ptrs, desc, w16, clock)
+        else:
             clock.begin("prep")
             clock.mark("prep")
+            batch = _no_blocks()
         return results, (batch, parts, cpo, cont_nraw, cont_ok, ptrs)
 
+    # -- the FSE stage: the kernels (use_kernels=True) ------------------
+
     def _prep(self, sources, ptrs, desc, w16, clock: _Clock) -> _Batch:
+        """The kernels' host half: the size sorts, the tables, the payloads
+        and the per-block parameters straight into the staging buffer, and
+        its upload, a region a shard."""
         clock.begin("prep_tables")
         nb = len(desc)
         n_sh = self._mesh.size
@@ -767,30 +639,108 @@ class TorchDecoder:
                             pos=drows["lmd_pos"], num=drows["lmd_num"],
                             out_off=drows["lmd_out"], n_out=n_out_m))
         clock.mark("prep_upload")
-        return _Batch(lit, lmd, sl_n, sm_n, off_l.astype(np.int64),
-                      off_m.astype(np.int64), lit_n, lmd_n,
-                      upload if self.device.type == "cuda" else None)
+        return _Batch(lit, lmd, sl_n, sm_n,
+                      (off_m[sm_n].astype(np.int64), lmd_n),
+                      (off_l[sl_n].astype(np.int64) * 4, lit_n),
+                      upload=upload if self.device.type == "cuda" else None)
 
     def _launch(self, batch: _Batch):
-        """Enqueue both kernels on every shard (``parallel/mesh.
-        launch_decode``). Returns per shard its device outputs (literal
-        words, lit states, lit pos, lm, d, lmd states, lmd pos) and its
-        CUDA events before and after its kernels (None on the CPU)."""
+        """The kernels' device half: both kernels on every shard
+        (``parallel/mesh.launch_decode``). Returns what ``_fse`` returns,
+        with each shard's CUDA events before and after its kernels (None on
+        the CPU)."""
         return launch_decode(self._mesh, list(zip(batch.lit, batch.lmd)),
                              self._side)
 
-    def _device(self, batch: _Batch, stats: dict | None):
-        """Run both kernels on every shard and bring their results back,
-        each output's shards concatenated in batch order. Returns host
-        arrays (literal bytes, lm, d, lit states, lit pos, lmd states, lmd
-        pos)."""
+    # -- the FSE stage: the scans (use_kernels=False) -------------------
+
+    def _scan_prep(self, sources, ptrs, desc, w16, clock: _Clock) -> _Batch:
+        """The scans' host half: every block's two payloads gathered by one
+        ``native.gather_payloads`` call into the zeroed rows of one buffer
+        (a row a block, the batch's longest payload and 8 bytes more,
+        rounded up to the gather's 512-byte chunks, which it pads with
+        zeros), uploaded with the weights and each stream's initial states,
+        bit position and count. The scans' outputs are in block order,
+        block g's rows at g * n_m and its literals at g * n_l words."""
+        clock.begin("prep")
+        nb = len(desc)
+        lit_n = desc[:, 1].astype(np.int64)
+        lmd_n = desc[:, 2].astype(np.int64)
+        lens_l = desc[:, 6].astype(np.int64)
+        lens_m = desc[:, 8].astype(np.int64)
+        w_l = _round_up(int(lens_l.max()) + 8, _ALIGN)
+        w_m = _round_up(int(lens_m.max()) + 8, _ALIGN)
+        pay = np.zeros(nb * (w_l + w_m), np.uint8)
+        g = np.arange(nb, dtype=np.int64)
+        self._native.gather_payloads(sources, desc, g * w_l,
+                                     nb * w_l + g * w_m, pay, ptrs)
+
+        def up(x, dtype=np.int32):
+            return torch.from_numpy(np.ascontiguousarray(x, dtype)).to(
+                self.device)
+
+        # the scans run the batch's largest step count, not the format's cap
+        n_l = int(K.literal_counts(lit_n).max())
+        n_m = int(lmd_n.max())
+        lit = dict(payload=up(pay[:nb * w_l].reshape(nb, w_l), np.uint8),
+                   states=up(desc[:, 9:13]), pos=up(lens_l * 8 - desc[:, 3]),
+                   num=up(lit_n), n_steps=n_l)
+        lmd = dict(payload=up(pay[nb * w_l:].reshape(nb, w_m), np.uint8),
+                   states=up(desc[:, 13:16]
+                             + (0, C.L_STATES, C.L_STATES + C.M_STATES)),
+                   pos=up(lens_m * 8 - desc[:, 4]), num=up(lmd_n),
+                   n_steps=n_m)
+        weights = up(w16)
+        clock.mark("prep")
+        return _Batch([lit], [lmd], g, g, (g * n_m, lmd_n),
+                      (g * n_l * 4, lit_n), weights)
+
+    def _scans(self, batch: _Batch):
+        """The scans' device half: the decode tables and both stream scans
+        as torch ops on the decoder's device. Returns what ``_fse``
+        returns, one shard without events."""
+        v_packed, v_base, u_packed = TB.build_decode_tables(batch.weights)
+        [lit], [lmd] = batch.lit, batch.lmd
+        lits, lit_fs, lit_fp = FD.decode_literals_batch(
+            u_packed, FD.bytes_to_windows(lit["payload"]), lit["states"],
+            lit["pos"], lit["num"], lit["n_steps"])
+        lmds, lmd_fs, lmd_fp = FD.decode_lmds_batch(
+            v_packed, v_base, FD.bytes_to_windows(lmd["payload"]),
+            lmd["states"], lmd["pos"], lmd["num"], lmd["n_steps"])
+        lm = lmds[:, :, 0] | (lmds[:, :, 1] << 16)
+        return [((lits.reshape(-1).view(torch.int32), lit_fs, lit_fp,
+                  lm.reshape(-1), lmds[:, :, 2].reshape(-1), lmd_fs, lmd_fp),
+                 None)]
+
+    # -- the FSE stage's contract ----------------------------------------
+
+    def _fse(self, batch: _Batch):
+        """The FSE stage's device half. Returns per shard its outputs on its
+        device (literal words, literal states, literal positions, ``lm``,
+        ``d`` raw with its repeat zeros, L/M/D states, L/M/D positions;
+        ``batch`` says where each block's lie) and the kernels' CUDA events
+        (None off a card and for the scans). A batch without an FSE block
+        gives one shard of empty outputs."""
+        if not batch.lit:
+            def z(*shape):
+                return torch.zeros(shape, dtype=torch.int32,
+                                   device=self.device)
+            return [((z(0), z(0, 4), z(0), z(0), z(0), z(0, 3), z(0)), None)]
+        return self._fse_run(batch)
+
+    # -- the native rebuild (use_native_rebuild=True) -------------------
+
+    def _back(self, sources, results, frame, launched, stats,
+              clock: _Clock):
+        """The FSE stage's outputs back into one pinned buffer (each
+        output's shards concatenated in batch order), the stream checks,
+        then the flatten and ``native.flatten_rebuild``."""
+        batch, parts, cpo, cont_nraw, cont_ok, ptrs = frame
         cuda = self.device.type == "cuda"
-        launched = self._launch(batch)
         # lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp
         self._down, pieces = download_groups(
             list(zip(*(outs for outs, _ in launched))), self._down, cuda)
         if cuda:
-            evs = [ev for _, ev in launched]
             ends = {}
             for dev in self._mesh.devices:
                 if dev not in ends:
@@ -798,30 +748,18 @@ class TorchDecoder:
                     ends[dev].record(torch.cuda.current_stream(dev))
             for ev in ends.values():
                 ev.synchronize()
-            _add_device_ms(stats, self._mesh.devices, batch.upload, evs,
-                           ends, self.mesh is not None)
+            if launched[0][1] is not None:   # the kernels' events
+                _add_device_ms(stats, self._mesh.devices, batch.upload,
+                               [ev for _, ev in launched], ends,
+                               self.mesh is not None)
         lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp = pieces
-        return lit.view(np.uint8), lm, d, lit_fs, lit_fp, lmd_fs, lmd_fp
-
-    def _back(self, sources, results, frame, stats, clock: _Clock):
-        """Device stage, stream checks, flatten and rebuild."""
-        clock.begin("device")
-        batch, parts, cpo, cont_nraw, cont_ok, ptrs = frame
-        if batch is not None:
-            lit_arr, lm_arr, d_arr, lit_fs, lit_fp, lmd_fs, lmd_fp = \
-                self._device(batch, stats)
-            sl_n, sm_n = batch.sl_n, batch.sm_n
-            fse_ok = _stream_ok(lit_fs[sl_n], lit_fp[sl_n], lmd_fs[sm_n],
-                                lmd_fp[sm_n])
-        else:
-            fse_ok = np.zeros(0, bool)
-            lit_arr = np.zeros(4, np.uint8)
-            lm_arr = np.zeros(1, np.int32)
-            d_arr = np.zeros(1, np.int32)
+        sl, sm = batch.sl_n, batch.sm_n
+        fse_ok = _stream_ok(lit_fs[sl], lit_fp[sl], lmd_fs[sm], lmd_fp[sm])
         clock.mark("device")
         clock.begin("flatten")
         kept, failed, parts_np, cont_off_np, out_offs_np = _flatten_plan(
-            parts, cpo, cont_nraw, cont_ok, fse_ok, batch)
+            parts, cpo, cont_nraw, cont_ok, fse_ok, batch.rows[0],
+            batch.lits[0])
         for ci in failed.tolist():
             results[ci] = _spec(sources, ci, stats)
         # rebuild straight into each container's final bytes object
@@ -830,10 +768,8 @@ class TorchDecoder:
         clock.mark("flatten")
         clock.begin("rebuild")
         status = self._native.flatten_rebuild(
-            lm_arr.reshape(-1), d_arr.reshape(-1), lit_arr.reshape(-1),
-            parts_np, cont_off_np, out_offs_np, np.zeros((1, 3), np.int32),
-            np.zeros(1, np.uint8), np.zeros(1, np.uint8), out_ptrs=out_ptrs,
-            ptrs=ptrs)
+            lm, d, lit.view(np.uint8), parts_np, cont_off_np, out_offs_np,
+            out_ptrs, ptrs)
         good = status == n_raw
         if len(kept) == len(results) and good.all():
             results[:] = out_bytes   # every container, in order
@@ -846,28 +782,19 @@ class TorchDecoder:
 
     # -- the device rebuild (use_native_rebuild=False) ------------------
 
-    def _dense(self, batch: _Batch | None):
-        """Launch both kernels. Returns (dense, states, events): the FSE
-        blocks' decoded rows and literals on the device with each block's
-        row offset and count and literal byte offset and count, the final
-        stream states and positions gathered into block order, and the
-        kernels' CUDA events (None on the CPU or without a block)."""
-        dev = self.device
-        if batch is None:
-            def z(*shape):
-                return torch.zeros(shape, dtype=torch.int32, device=dev)
-            none = (np.zeros(0, np.int64),) * 2
-            return ((z(0), z(0), torch.zeros(0, dtype=torch.uint8, device=dev),
-                     none, none), (z(0, 4), z(0), z(0, 3), z(0)), None)
-        # one shard: only the default path takes a mesh
-        [((lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp), ev)] = \
-            self._launch(batch)
-        sl = torch.from_numpy(batch.sl_n).to(dev).long()
-        sm = torch.from_numpy(batch.sm_n).to(dev).long()
-        dense = (lm, d, lit.view(torch.uint8),
-                 (batch.off_m[batch.sm_n], batch.lmd_n),
-                 (batch.off_l[batch.sl_n] * 4, batch.lit_n))
-        return dense, (lit_fs[sl], lit_fp[sl], lmd_fs[sm], lmd_fp[sm]), ev
+    def _dense(self, batch: _Batch, launched):
+        """The FSE stage's outputs as the device flatten takes them:
+        (dense, states, events), the decoded rows and literals on the
+        device with each block's row offset and count and literal byte
+        offset and count, the final stream states and positions gathered
+        into block order, and the kernels' CUDA events (None off a card
+        and for the scans)."""
+        # one shard: only the native rebuild takes a mesh
+        [((lit, lit_fs, lit_fp, lm, d, lmd_fs, lmd_fp), ev)] = launched
+        sl = torch.from_numpy(batch.sl_n).to(self.device).long()
+        sm = torch.from_numpy(batch.sm_n).to(self.device).long()
+        return ((lm, d, lit.view(torch.uint8), batch.rows, batch.lits),
+                (lit_fs[sl], lit_fp[sl], lmd_fs[sm], lmd_fp[sm]), ev)
 
     def _flat_args(self, dense, conts: list, n_raw):
         """Flatten the containers' parts ``conts`` on the device
@@ -959,12 +886,12 @@ class TorchDecoder:
         clock.mark("rebuild")
         return results
 
-    def _back_device(self, sources, results, frame, stats, clock: _Clock):
-        """Device stage, then the flatten and the LZ rebuild on the device:
-        the kernels' outputs never come back to the host."""
-        clock.begin("device")
+    def _back_device(self, sources, results, frame, launched, stats,
+                     clock: _Clock):
+        """The flatten and the LZ rebuild on the device: the FSE stage's
+        outputs never come back to the host."""
         batch, parts, cpo, cont_nraw, cont_ok, _ = frame
-        dense, states, ev = self._dense(batch)
+        dense, states, ev = self._dense(batch, launched)
         clock.mark("device")
         clock.begin("flatten")
         ids, conts = [], []
@@ -983,130 +910,6 @@ class TorchDecoder:
                             ("kernels_ms", ev[0], ev[1])))
         return results
 
-    # -- the scan path (use_kernels=False) -------------------------------
-
-    def _decode_scan(self, sources, stats, clock: _Clock):
-        """The Python parse, the decode tables and both stream scans as
-        torch ops on the device (``ops/table_build``, ``ops/fse_decode``),
-        then the native or the device rebuild: the JAX decoder's portable
-        path (``decode_many`` with ``use_pallas=False``)."""
-        clock.begin("parse")
-        fse_blocks: list[_FseBlockDesc] = []
-        parsed = [_parse_container(s, i, fse_blocks)
-                  for i, s in enumerate(sources)]
-        clock.mark("parse")
-        clock.begin("prep")
-        dev = self.device
-        nb = len(fse_blocks)
-        lit_num = np.array([b.block.literal.num for b in fse_blocks], np.int64)
-        lmd_num = np.array([b.block.lmd.num for b in fse_blocks], np.int64)
-        # the scans run the batch's largest step count, not the format's cap
-        n_l = int(K.literal_counts(lit_num).max()) if nb else 0
-        n_m = int(lmd_num.max()) if nb else 0
-        w_l = max((len(b.lit_payload) for b in fse_blocks), default=0) + 8
-        w_m = max((len(b.lmd_payload) for b in fse_blocks), default=0) + 8
-        weights = np.zeros((nb, C.N_WEIGHTS), np.int32)
-        litp = np.zeros((nb, w_l), np.uint8)
-        lmdp = np.zeros((nb, w_m), np.uint8)
-        pos = np.zeros((nb, 2), np.int32)
-        lit_states = np.zeros((nb, 4), np.int32)
-        lmd_states = np.zeros((nb, 3), np.int32)
-        for i, b in enumerate(fse_blocks):
-            weights[i] = b.weights
-            litp[i, :len(b.lit_payload)] = np.frombuffer(b.lit_payload,
-                                                         np.uint8)
-            lmdp[i, :len(b.lmd_payload)] = np.frombuffer(b.lmd_payload,
-                                                         np.uint8)
-            pos[i] = (len(b.lit_payload) * 8 - b.block.literal.bits,
-                      len(b.lmd_payload) * 8 - b.block.lmd.bits)
-            lit_states[i] = b.block.literal.state
-            lmd_states[i] = np.add(b.block.lmd.state,
-                                   (0, C.L_STATES, C.L_STATES + C.M_STATES))
-
-        def t(x):
-            return torch.from_numpy(np.ascontiguousarray(x)).to(dev)
-
-        if nb:
-            v_packed, v_base, u_packed = TB.build_decode_tables(t(weights))
-            literals, lit_fs, lit_fp = FD.decode_literals_batch(
-                u_packed, FD.bytes_to_windows(t(litp)), t(lit_states),
-                t(pos[:, 0]), t(lit_num.astype(np.int32)), n_l)
-            lmds, lmd_fs, lmd_fp = FD.decode_lmds_batch(
-                v_packed, v_base, FD.bytes_to_windows(t(lmdp)),
-                t(lmd_states), t(pos[:, 1]), t(lmd_num.astype(np.int32)), n_m)
-            lmds[:, :, 2] = LR.substitute_distances(lmds[:, :, 2])
-        else:
-            literals = t(np.zeros((0, 0), np.uint8))
-            lmds = t(np.zeros((0, 0, 3), np.int32))
-            lit_fs, lmd_fs = t(lit_states), t(lmd_states)
-            lit_fp = lmd_fp = t(pos[:, 0])
-        clock.mark("prep")
-        clock.begin("device")
-        results: list = [None] * len(sources)
-        if not self.use_native_rebuild:
-            dense = ((lmds[:, :, 0] | (lmds[:, :, 1] << 16)).reshape(-1),
-                     lmds[:, :, 2].reshape(-1), literals.reshape(-1),
-                     (np.arange(nb) * n_m, lmd_num),
-                     (np.arange(nb) * n_l * 4, lit_num))
-            clock.mark("device")
-            clock.begin("flatten")
-            return self._rebuild_on_device(
-                sources, results, list(range(len(sources))),
-                [pc.parts for pc in parsed], [pc.n_raw for pc in parsed],
-                dense, (lit_fs, lit_fp, lmd_fs, lmd_fp), stats, clock)
-
-        # the native flatten + rebuild (the JAX decoder.py:1056-1132)
-        lit_arr = np.ascontiguousarray(literals.cpu().numpy())
-        lmd_arr = np.ascontiguousarray(lmds.cpu().numpy())
-        fse_ok = _stream_ok(lit_fs.cpu().numpy(), lit_fp.cpu().numpy(),
-                            lmd_fs.cpu().numpy(), lmd_fp.cpu().numpy())
-        clock.mark("device")
-        clock.begin("flatten")
-        part_rows, cont_ids, out_offs = [], [], [0]
-        cont_off = [0]
-        h_rows, h_lits = [], []
-        h_r = h_l = 0
-        for ci, pc in enumerate(parsed):
-            if not all(fse_ok[p[1]] for p in pc.parts if p[0] == "fse"):
-                results[ci] = _spec(sources, ci, stats)
-                continue
-            for part in pc.parts:
-                if part[0] == "fse":
-                    blk = fse_blocks[part[1]].block
-                    # P[1]/P[4]: the block's row of the lm/d and literal
-                    # arrays
-                    part_rows.append((0, part[1], blk.lmd.num,
-                                      blk.literal.num, part[1], 0))
-                else:
-                    rows, lits = part[1], np.frombuffer(part[2], np.uint8)
-                    part_rows.append((1, h_r, len(rows), h_l, len(lits), 0))
-                    h_rows.append(rows)
-                    h_lits.append(lits)
-                    h_r += len(rows)
-                    h_l += len(lits)
-            cont_ids.append(ci)
-            cont_off.append(len(part_rows))
-            out_offs.append(out_offs[-1] + pc.n_raw)
-        out_bytes, out_ptrs = self._native.new_outputs(np.diff(out_offs))
-        clock.mark("flatten")
-        clock.begin("rebuild")
-        status = self._native.flatten_rebuild(
-            (lmd_arr[:, :, 0] | (lmd_arr[:, :, 1] << 16)).reshape(max(nb, 1),
-                                                                 -1),
-            lmd_arr[:, :, 2].reshape(max(nb, 1), -1),
-            lit_arr.reshape(max(nb, 1), -1),
-            np.asarray(part_rows, np.int32).reshape(-1, 6),
-            np.asarray(cont_off, np.int32), np.asarray(out_offs, np.int64),
-            np.ascontiguousarray(np.concatenate(h_rows), np.int32)
-            if h_rows else np.zeros((1, 3), np.int32),
-            np.concatenate(h_lits) if h_lits else np.zeros(1, np.uint8),
-            np.zeros(1, np.uint8), out_ptrs=out_ptrs)
-        for k, ci in enumerate(cont_ids):
-            results[ci] = (out_bytes[k] if status[k] == parsed[ci].n_raw
-                           else _spec(sources, ci, stats))
-        clock.mark("rebuild")
-        return results
-
     # -- public ----------------------------------------------------------
 
     def decode_many(self, sources: list[bytes],
@@ -1116,7 +919,7 @@ class TorchDecoder:
         ``stats``, when given, receives wall-clock seconds per stage
         (``parse``, ``prep``, ``device``, ``flatten``, ``rebuild``; with
         the device rebuild also ``out_copy``), the prep sub-stages under
-        ``detail_prep`` (kernel path), the calling thread's CPU seconds in
+        ``detail_prep`` (the kernels), the calling thread's CPU seconds in
         each of those stages under ``detail_cpu`` (``{"user": s, "sys":
         s}`` under the same keys, the prep split under its
         ``detail_prep``; see ``_Clock``), on a card the CUDA-event
@@ -1125,30 +928,28 @@ class TorchDecoder:
         each shard's kernels under ``shard_kernels_ms``; with the device
         rebuild also the flatten, the rebuild and the output bytes'
         download, ``out_download_ms``), and the count of spec-layer
-        ``fallbacks``. On the kernel path (either rebuild) ``detail_parts``
-        counts what the container walk found: ``containers`` (the sources),
-        ``host_only`` (accepted containers whose output the device takes
-        no part in on this call's path: with the native rebuild those with
-        no FSE block, whose LZVN and RAW blocks are decoded on host
-        threads; with the device rebuild only those with no block at all),
-        their raw bytes ``host_only_bytes``, the raw bytes of every accepted container
+        ``fallbacks``. ``detail_parts`` counts what the container walk
+        found: ``containers`` (the sources), ``host_only`` (accepted
+        containers whose output the device takes no part in on this call's
+        path: with the native rebuild those with no FSE block, whose LZVN
+        and RAW blocks are decoded on host threads; with the device rebuild
+        only those with no block at all), their raw bytes
+        ``host_only_bytes``, the raw bytes of every accepted container
         ``raw_bytes``, and the blocks of each kind, ``fse_blocks``,
-        ``vn_blocks`` and ``raw_blocks``, and ``walks`` the tries of the
-        native walk (one where the batch fits the last call's capacity);
-        the scan path (``use_kernels=False``) leaves both out. Every count
-        and every second adds to what ``stats`` already holds. Under an active
+        ``vn_blocks`` and ``raw_blocks``; ``walks`` the tries of the native
+        walk (one where the batch fits the last call's capacity). Every
+        count and every second adds to what ``stats`` already holds. Under an active
         ``torch.profiler`` session the call is a ``lzfse.decode_many``
         range with a ``lzfse.decode.<stage>`` range a stage inside it
         (``lzfse.decode.prep.tables`` for ``prep_tables``). Not
         re-entrant: the staging buffers belong to the decoder."""
         with _Clock(stats, "decode") as clock:
-            if not self.use_kernels:
-                return self._decode_scan(sources, stats, clock)
             results, frame = self._front(sources, stats, clock)
             clock.fold("prep")
-            back = self._back if self.use_native_rebuild else \
-                self._back_device
-            return back(sources, results, frame, stats, clock)
+            clock.begin("device")
+            launched = self._fse(frame[0])
+            return self._rebuild(sources, results, frame, launched, stats,
+                                 clock)
 
     def decode_bytes(self, src: bytes) -> bytes:
         """Decode one container: ``decode_many([src])[0]``."""
@@ -1157,25 +958,26 @@ class TorchDecoder:
     def kernel_args(self, sources: list[bytes]) -> tuple[dict, dict]:
         """The two kernels' arguments for a batch, on this decoder's device:
         ``(decode_literals kwargs, decode_lmds kwargs)``, as
-        ``decode_many`` passes them (a decoder without a mesh)."""
+        ``decode_many`` passes them (a decoder without a mesh; with
+        ``use_kernels=False`` the scans' inputs)."""
         if self.mesh is not None:
             raise ValueError("kernel_args: a mesh decoder has a pair of "
                              "arguments per shard")
         _, (batch, *_rest) = self._front(sources, None, _Clock(None))
-        if batch is None:
+        if not batch.lit:
             raise ValueError("the batch holds no FSE block")
         return batch.lit[0], batch.lmd[0]
 
     def flatten_inputs(self, sources: list[bytes]):
         """What the device flatten of ``decode_many`` with
         ``use_native_rebuild=False`` takes, for every container the walk
-        accepts: (dense, parts, sizes), the decode kernels' dense outputs
-        on this decoder's device with the blocks' offsets and counts, each
+        accepts: (dense, parts, sizes), the FSE stage's outputs on this
+        decoder's device with the blocks' offsets and counts, each
         container's flatten parts, and their sizes (``_flat_args``'s
         arguments)."""
         _, (batch, parts, cpo, cont_nraw, cont_ok, _) = self._front(
             sources, None, _Clock(None))
-        dense, _, _ = self._dense(batch)
+        dense, _, _ = self._dense(batch, self._fse(batch))
         ids = np.flatnonzero(cont_ok).tolist()
         conts = [_walk_parts(sources[ci], parts[cpo[ci]:cpo[ci + 1]])
                  for ci in ids]
@@ -1184,7 +986,7 @@ class TorchDecoder:
     def rebuild_args(self, sources: list[bytes]) -> dict:
         """The LZ rebuild's arguments for a batch, on this decoder's device:
         the ``ops/cuda_rebuild.py`` ``lz_rebuild`` keyword arguments that
-        ``decode_many`` with ``use_native_rebuild=False`` builds (the kernel
-        path's decoded rows, flattened on the device), for every container
+        ``decode_many`` with ``use_native_rebuild=False`` builds (the FSE
+        stage's decoded rows, flattened on the device), for every container
         the walk accepts."""
         return self._flat_args(*self.flatten_inputs(sources))[0]

@@ -110,7 +110,8 @@ from ..parallel.mesh import sharded_grouped_match
 from ..runtime.build import native_runtime
 from ..spec import fse as F
 from ..spec.match_find import MatchStream, _lcp_backward, _lcp_forward
-from .decoder import _Clock, _round_up, host_buffer
+from ..utils.buffers import _round_up, host_buffer
+from ..utils.timing import _Clock
 
 # staged row width: LMDS_PER_BLOCK rounded up to 128, the width
 # native.frontend_stage and native.pack_stage are used with

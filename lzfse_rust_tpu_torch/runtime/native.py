@@ -296,7 +296,7 @@ def src_ptrs(sources):
     anything that is not a bytes object. A caller that passes one batch to
     several of ``walk``, ``walk_batch``, ``gather_payloads`` and
     ``flatten_rebuild`` builds the pair once and gives it to each as
-    ``ptrs``."""
+    ``ptrs`` (``flatten_rebuild`` takes it only so)."""
     import numpy as np
     n = len(sources)
     spans = np.empty((2, n), np.int64)
@@ -386,22 +386,20 @@ def alloc_reuse() -> None:
 
 
 def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
-                    out_offs, host_rows, host_lits, out, sources=(),
-                    out_ptrs=None, ptrs=None):
-    """Flatten + LZ-rebuild a batch of containers in one threaded call.
+                    out_offs, out_ptrs, ptrs):
+    """Flatten + LZ-rebuild a batch of containers in one threaded call, each
+    straight into its own output buffer.
 
-    lm_rows/d_rows: (nb, LMDS) int32 packed device rows (l | m << 16 and
-    raw d with repeat-zeros); lit_rows: (nb, LITS) uint8 (the kernels'
-    packed literal words viewed as bytes); parts: (n_parts, 6) int32
-    descriptors (kind 2/3 parts reference `sources`); cont_part_off:
-    (n_conts+1,) int32; out_offs: (n_conts+1,) int64 output segment
-    offsets; host_rows: (n_host_rows, 3) int32; host_lits: uint8; out:
-    flat uint8 buffer; sources: the container bytes list (only needed
-    when kind 2/3 parts are present); out_ptrs: optional (n_conts,)
-    int64 array of per-container output base addresses — when given, each
-    container rebuilds straight into its own buffer (the caller's final
-    bytes objects) and `out` is ignored except as a dummy; ptrs: `sources`'
-    `src_ptrs` pair, when the caller has built it.
+    lm_rows/d_rows: int32 packed device rows (l | m << 16 and raw d with
+    repeat-zeros); lit_rows: uint8 (the kernels' packed literal words
+    viewed as bytes); each either (nb, width), a part's row index scaled
+    by the width, or 1-D, a part's index the absolute word/byte offset.
+    parts: (n_parts, 6) int32 descriptors (kind 2/3 parts reference the
+    sources); cont_part_off: (n_conts+1,) int32; out_offs: (n_conts+1,)
+    int64 output segment offsets; out_ptrs: (n_conts,) int64 addresses of
+    the containers' output buffers (the caller's final bytes objects);
+    ptrs: the sources' ``src_ptrs`` pair. The C call's host rows, host
+    literals and flat output are left empty: no part refers to them.
     Returns (n_conts,) int64 per-container bytes-written-or-negative-error.
     """
     import numpy as np
@@ -412,20 +410,16 @@ def flatten_rebuild(lm_rows, d_rows, lit_rows, parts, cont_part_off,
     lit_rows = np.ascontiguousarray(lit_rows, dtype=np.uint8)
     n_conts = len(out_offs) - 1
     status = np.empty(n_conts, np.int64)
-    if ptrs is None:
-        ptrs = src_ptrs(list(sources) or [b""])
-    # 2-D arrays: part row indices scale by the row stride. 1-D (dense
-    # compacted) arrays: stride 1, so part indices are absolute word/byte
-    # offsets.
+    host_rows = np.zeros((1, 3), np.int32)
+    host_bytes = np.zeros(1, np.uint8)   # host literals, and the flat output
     _lib().tl_flatten_rebuild(
         lm_rows.ctypes.data, d_rows.ctypes.data, lit_rows.ctypes.data,
         lm_rows.shape[1] if lm_rows.ndim == 2 else 1,
         lit_rows.shape[1] if lit_rows.ndim == 2 else 1,
         parts.ctypes.data, cont_part_off.ctypes.data, out_offs.ctypes.data,
-        host_rows.ctypes.data, host_lits.ctypes.data, out.ctypes.data,
-        status.ctypes.data, n_conts, lit_rows.size, host_lits.size,
-        ptrs[0].ctypes.data,
-        out_ptrs.ctypes.data if out_ptrs is not None else None)
+        host_rows.ctypes.data, host_bytes.ctypes.data, host_bytes.ctypes.data,
+        status.ctypes.data, n_conts, lit_rows.size, host_bytes.size,
+        ptrs[0].ctypes.data, out_ptrs.ctypes.data)
     return status
 
 

@@ -33,7 +33,7 @@ import torch
 from ..ops import cuda_decode as K
 from ..ops import table_build as TB
 from ..runtime.build import native_runtime
-from ..utils.timing import cuda_ms
+from ..utils.timing import _Clock, cuda_ms
 from .common import require_card, second_smallest, serving_pairs
 
 
@@ -41,7 +41,6 @@ def slot_inputs(dec, sources):
     """(weights (nb, 360) uint16 in block order, literal slot of each block,
     L/M/D slot of each block, literal kwargs, L/M/D kwargs) as
     ``decode_many`` builds them."""
-    from ..models.decoder import _Clock
     w16 = native_runtime().walk_batch(sources)[1]
     _, (batch, *_rest) = dec._front(sources, None, _Clock(None))
     return w16, batch.sl_n, batch.sm_n, batch.lit[0], batch.lmd[0]

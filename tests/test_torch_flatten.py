@@ -12,8 +12,6 @@ failing containers must call the spec layer in the order the loop did
 order), so the same exception is raised and the same fallbacks counted.
 """
 
-from types import SimpleNamespace
-
 import numpy as np
 import pytest
 
@@ -21,12 +19,12 @@ from lzfse_rust_tpu_torch import TorchDecoder
 from lzfse_rust_tpu_torch.models import decoder as D
 from lzfse_rust_tpu_torch.runtime.build import native_runtime
 from lzfse_rust_tpu_torch.spec import container as spec_container
-from lzfse_rust_tpu_torch.utils import corpus
+from lzfse_rust_tpu_torch.utils import corpus, timing
 
 from torch_kit import bytes_addr
 
 
-def _loop_flatten(parts, cpo, cont_nraw, cont_ok, fse_ok, batch):
+def _loop_flatten(parts, cpo, cont_nraw, cont_ok, fse_ok, row_off, lit_off):
     """The per-container flatten loop ``_flatten_plan`` replaced, with the
     spec-layer calls recorded in ``failed`` instead of made."""
     failed, keep_parts, cont_ids, out_offs = [], [], [], [0]
@@ -46,8 +44,8 @@ def _loop_flatten(parts, cpo, cont_nraw, cont_ok, fse_ok, batch):
         k0 = parts_np[:, 0] == 0
         if k0.any():
             g = parts_np[k0, 1]
-            parts_np[k0, 1] = batch.off_m[batch.sm_n[g]]
-            parts_np[k0, 4] = batch.off_l[batch.sl_n[g]] * 4
+            parts_np[k0, 1] = row_off[g]
+            parts_np[k0, 4] = lit_off[g]
     cont_off_np = np.zeros(len(cont_ids) + 1, np.int32)
     if keep_parts:
         cont_off_np[1:] = np.cumsum([len(p) for p in keep_parts])
@@ -109,17 +107,15 @@ def test_flatten_plan_equals_the_loop(name, check, kinds):
     nb = len(desc)
     rng = np.random.default_rng(len(sources) * 31 + nb)
     fse_ok = CHECKS[check](nb, rng)
-    # the decoder's block offsets: any values, so each is told apart
-    batch = (SimpleNamespace(
-        sm_n=rng.permutation(nb).astype(np.int32),
-        sl_n=rng.permutation(nb).astype(np.int32),
-        off_m=rng.integers(0, 1 << 20, nb).astype(np.int64),
-        off_l=rng.integers(0, 1 << 20, nb).astype(np.int64))
-        if nb else None)
+    # the blocks' offsets in the FSE stage's outputs: any values, so each
+    # is told apart
+    row_off = rng.integers(0, 1 << 20, nb).astype(np.int64)
+    lit_off = rng.integers(0, 1 << 22, nb).astype(np.int64)
     parts_before = parts.copy()
-    want = _loop_flatten(parts, cpo, cont_nraw, cont_ok, fse_ok, batch)
+    want = _loop_flatten(parts, cpo, cont_nraw, cont_ok, fse_ok, row_off,
+                         lit_off)
     kept, failed, parts_np, cont_off, out_offs = D._flatten_plan(
-        parts, cpo, cont_nraw, cont_ok, fse_ok, batch)
+        parts, cpo, cont_nraw, cont_ok, fse_ok, row_off, lit_off)
     assert kept.tolist() == want[0]
     assert failed.tolist() == want[1]
     for got, exp in zip((parts_np, cont_off, out_offs), want[2:]):
@@ -133,7 +129,7 @@ def test_flatten_plan_equals_the_loop(name, check, kinds):
     if name in ("walk_rejected", "all_rejected"):
         assert not cont_ok.all()
     if name in ("no_fse", "empty_only", "none", "all_rejected"):
-        assert nb == 0 and batch is None
+        assert nb == 0
 
 
 def test_new_outputs_gives_each_buffer_address():
@@ -208,17 +204,17 @@ def _flipped(c: bytes, stage: str, dec: TorchDecoder) -> bytes:
                 return b""
 
             stage_of = [None]
-            mark = D._Clock.mark
+            mark = timing._Clock.mark
 
             def marked(self, key):
                 stage_of[0] = key
                 return mark(self, key)
 
-            D._spec, D._Clock.mark = spy, marked
+            D._spec, timing._Clock.mark = spy, marked
             try:
                 dec.decode_many([b])
             finally:
-                D._spec, D._Clock.mark = real, mark
+                D._spec, timing._Clock.mark = real, mark
             # the stage last closed before the spec call: "device" for a
             # call during the flatten, "flatten" for one during the rebuild
             if calls == [{"flatten": "device", "rebuild": "flatten"}[stage]]:

@@ -58,8 +58,10 @@ def make_batch(sizes, kinds, seed=SEED):
 
 
 # the block kinds whose output the card takes part in, by path: the native
-# rebuild decodes LZVN and RAW blocks on the host, the device rebuild none
-CARD_KINDS = {"default": ("fse",), "device_rebuild": ("fse", "vn", "raw")}
+# rebuild (default and scan paths) decodes LZVN and RAW blocks on the host,
+# the device rebuild none
+CARD_KINDS = {"default": ("fse",), "device_rebuild": ("fse", "vn", "raw"),
+              "scan": ("fse",)}
 
 
 def reference_counts(containers, path="default") -> dict:
@@ -108,10 +110,8 @@ def test_every_path_equals_the_raw_inputs_and_references(path, etc,
     assert got == raws == jax_outputs
     assert got == [RC.decode_bytes(c) for c in conts]
     assert stats.get("fallbacks", 0) == 0
-    if path == "scan":
-        assert "detail_parts" not in stats
-    else:
-        assert stats["detail_parts"] == reference_counts(conts, path)
+    assert stats["detail_parts"] == reference_counts(conts, path)
+    assert stats["walks"] == 1
 
 
 @pytest.mark.parametrize("path", PATHS)
@@ -124,17 +124,16 @@ def test_batch_without_fse_blocks(path, etc):
     got = TorchDecoder("cpu", **PATHS[path]).decode_many(conts, stats)
     assert got == raws
     assert stats.get("fallbacks", 0) == 0
-    if path != "scan":
-        parts = stats["detail_parts"]
-        assert parts == reference_counts(conts, path)
-        assert parts["fse_blocks"] == 0
-        assert parts["raw_bytes"] == sum(map(len, raws))
-        if path == "default":
-            assert parts["host_only"] == parts["containers"] == len(conts)
-            assert parts["host_only_bytes"] == parts["raw_bytes"]
-        else:   # the device rebuild writes every block's output
-            assert parts["host_only_bytes"] == 0
-            assert parts["host_only"] == sum(r == b"" for r in raws)
+    parts = stats["detail_parts"]
+    assert parts == reference_counts(conts, path)
+    assert parts["fse_blocks"] == 0
+    assert parts["raw_bytes"] == sum(map(len, raws))
+    if path != "device_rebuild":
+        assert parts["host_only"] == parts["containers"] == len(conts)
+        assert parts["host_only_bytes"] == parts["raw_bytes"]
+    else:   # the device rebuild writes every block's output
+        assert parts["host_only_bytes"] == 0
+        assert parts["host_only"] == sum(r == b"" for r in raws)
 
 
 def test_counts_add_up_over_calls_and_leave_out_rejected(etc):

@@ -19,8 +19,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from lzfse_rust_tpu_torch import TorchDecoder, TorchEncoder
-from lzfse_rust_tpu_torch.models import decoder as D
 from lzfse_rust_tpu_torch.utils import corpus
+from lzfse_rust_tpu_torch.utils import timing
 
 ROOT = pathlib.Path(__file__).resolve().parents[1]
 sys.path.insert(0, str(ROOT))
@@ -162,7 +162,7 @@ def test_no_clock_read_without_stats(monkeypatch):
     def boom():
         raise AssertionError("a CPU clock read without stats")
 
-    monkeypatch.setattr(D, "_thread_cpu", boom)
+    monkeypatch.setattr(timing, "_thread_cpu", boom)
     pairs = _pairs(64)
     raws = [r for r, _ in pairs]
     assert TorchDecoder("cpu").decode_many([c for _, c in pairs]) == raws
